@@ -1,15 +1,15 @@
-"""lsbench_tpu — a TPU-native sparse linear-solver library + benchmark harness.
+"""lsbench_tpu — a sparse linear-solver library + benchmark harness in JAX.
 
 Re-creates the capabilities of the reference ``lsbench`` (a C/C++ harness
-wrapping cuSolverSp, CHOLMOD, Hypre BoomerAMG, AmgX, parAlmond and Ginkgo —
-see /root/reference/src/lsbench.h:36-40) as native JAX/XLA/Pallas solvers:
+wrapping cuSolverSp, CHOLMOD, Hypre BoomerAMG, AmgX, parAlmond and Ginkgo)
+as native JAX/XLA solvers:
 
 - matrix core: COO text reader with reference-identical semantics
-  (lsbench-csr.c:29-92), host CSR, TPU-friendly padded (ELL) and
-  block-sparse device layouts
-- kernels: jnp + Pallas SpMV, fused Krylov reductions
-- solvers: CG / BiCGSTAB / GMRES (Krylov), dense+banded Cholesky (direct),
-  algebraic multigrid (AMG) as preconditioner and fixed-cycle solver
+  (lsbench-csr.c:29-92), host CSR, padded (ELL) and CSR device layouts
+- kernels: SpMV, fused Krylov reductions
+- solvers: CG / BiCGSTAB / GMRES (Krylov), dense+banded+sparse Cholesky
+  (direct), algebraic multigrid (AMG) as preconditioner and fixed-cycle
+  solver
 - distribution: block-row partitioning over a `jax.sharding.Mesh`,
   halo exchange + fused all-reduces (replaces the reference's vestigial
   MPI path, paralmond.cpp:94-102)
@@ -18,30 +18,33 @@ see /root/reference/src/lsbench.h:36-40) as native JAX/XLA/Pallas solvers:
 
 FP64 semantics are preserved by enabling x64 at import (the reference
 enforces FP64, lsbench.c:140-141); FP32 and mixed-precision iterative
-refinement are offered as TPU-fast alternatives.
+refinement are offered beside it.
 """
 
 import os as _os
 
 import jax as _jax
 
-# FP64 is the reference's enforced precision (lsbench.c:140-141). TPU f64 is
-# emulated but correct; enable before any array is created.
+# FP64 is the reference's enforced precision (lsbench.c:140-141); enable
+# before any array is created.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: dense Cholesky and the Pallas kernels
-# compile in seconds-to-minutes on TPU; without this every CLI invocation
-# (a fresh process) pays it again. Opt out with LSBENCH_NO_COMPILE_CACHE=1.
-if not _os.environ.get("LSBENCH_NO_COMPILE_CACHE"):
-    _cache_dir = _os.environ.get(
-        "LSBENCH_COMPILE_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "lsbench_tpu_xla"))
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # cache is best-effort; never block startup on it
+CHECKOUT_DIR = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+
+
+def compile_cache_dir() -> str:
+    """Where the persistent XLA compilation cache lives: the directory
+    JAX_COMPILATION_CACHE_DIR names, else `<checkout>/.jax_cache` (a
+    fixed path, since the path is part of the cache key)."""
+    return (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _os.path.join(CHECKOUT_DIR, ".jax_cache"))
+
+
+# Every CLI invocation is a fresh process; the persistent cache keeps
+# compiled solves across them. JAX reads JAX_COMPILATION_CACHE_DIR
+# itself, so code sets the directory only when the variable is unset.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
 
 from lsbench_tpu.matrix.csr import CsrMatrix  # noqa: E402
 from lsbench_tpu.matrix.io import read_matrix  # noqa: E402

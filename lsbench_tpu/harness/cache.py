@@ -1,7 +1,7 @@
 """Setup cache — checkpoint/resume for host-side setup products.
 
 The reference re-reads and re-factors on every run (SURVEY.md §5:
-checkpoint/resume "None"); the planned TPU-native upgrade is to cache the
+checkpoint/resume "None"); the upgrade here is to cache the
 expensive *setup* artifacts (fill-reducing orderings, sparse-Cholesky
 factors, AMG hierarchies) keyed by a content hash of the matrix, since for
 trials sweeps setup dominates end-to-end time.

@@ -1,12 +1,11 @@
 """Scaling harness: nnz/s efficiency across device counts.
 
-The BASELINE.json north star asks for ≥80% nnz/s scaling efficiency at 2+
-hosts; the reference has nothing to scale (single device everywhere,
-SURVEY.md §2.2). This tool runs the distributed solvers at a sweep of
-device counts on whatever mesh is available — real chips over ICI, or the
-CPU-simulated mesh (--xla_force_host_platform_device_count), which
-exercises the identical shard_map/collective code paths (timings on the
-simulated mesh validate the path, not ICI bandwidth).
+The reference has nothing to scale (single device everywhere, SURVEY.md
+§2.2). This tool runs the distributed solvers at a sweep of device counts
+on whatever mesh is available — real cards, or the CPU-simulated mesh
+(--xla_force_host_platform_device_count), which exercises the identical
+shard_map/collective code paths (timings on the simulated mesh validate
+the path, not link bandwidth).
 
 Protocol: fixed-iteration CG (rtol=0, maxiter=N) so every device count
 does identical work; throughput = nnz·iters/elapsed; efficiency(D) =
@@ -49,13 +48,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _time_solver(solver, b, reps: int) -> float:
-    from lsbench_tpu.utils import host_fence
+    import jax
     fn = solver.solve_fn()
-    host_fence(fn(b))  # compile + warm
+    jax.block_until_ready(fn(b))  # compile + warm
     ts = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        host_fence(fn(b))
+        jax.block_until_ready(fn(b))
         ts.append(time.perf_counter() - t0)
     return sorted(ts)[reps // 2]
 
@@ -71,9 +70,8 @@ def _mesh2d_shape(d: int) -> tuple[int, int]:
 def run_sweep(A, counts, iters=100, reps=3, strategy="auto",
               ordering="none", mesh2d=False):
     """Device-count sweep of fixed-iteration distributed CG on `A`.
-    Returns the list of per-configuration records (also the importable
-    core of `python -m lsbench_tpu.scale` — _results_scale_sweep.py uses
-    it to regenerate RESULTS.md §7)."""
+    Returns the list of per-configuration records (the importable core of
+    `python -m lsbench_tpu.scale`)."""
     import sys
 
     import numpy as np
@@ -83,9 +81,8 @@ def run_sweep(A, counts, iters=100, reps=3, strategy="auto",
     from lsbench_tpu.parallel.dist_cg import DistributedCg
     from lsbench_tpu.parallel.mesh import make_mesh_2d, make_row_mesh
 
-    # Validate here, not only in main(): importers (e.g.
-    # _results_scale_sweep.py) would otherwise crash mid-sweep on a
-    # mesh-construction error and lose the earlier records (ADVICE r4).
+    # Validate here, not only in main(): importers would otherwise crash
+    # mid-sweep on a mesh-construction error and lose earlier records.
     avail = jax.device_count()
     usable = [d for d in counts if d <= avail]
     for d in counts:

@@ -5,7 +5,7 @@ The reference keeps a single C struct ``csr {nrows, base, offs, cols, vals}``
 with 0-based row offsets but columns left at the file's original base, which
 every backend then re-corrects (or forgets to — ginkgo.cpp:26-29). Here the
 host container is fully 0-based and NumPy-backed; device layouts are derived
-from it (see ell.py / bsr.py).
+from it (see ell.py and solvers/cg.py::build_matvec).
 """
 
 from __future__ import annotations

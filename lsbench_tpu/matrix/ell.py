@@ -1,4 +1,4 @@
-"""Padded-CSR (ELL) device layout — the TPU-native workhorse format.
+"""Padded-CSR (ELL) device layout — the workhorse format.
 
 The reference workload has 22–25 nnz/row with low variance (SURVEY.md §2.1),
 so padding every row to the max width wastes little and buys static shapes:
@@ -6,8 +6,8 @@ so padding every row to the max width wastes little and buys static shapes:
 row reduction, and everything jits with no dynamic shapes. Padding slots hold
 col=0 / val=0, so arbitrary gathers stay in-bounds and contribute nothing.
 
-Rows are padded to a multiple of `row_align` (default 8 f32 sublanes; use
-128 for Pallas/MXU-tiled kernels) and the width k to a multiple of
+Rows are padded to a multiple of `row_align` (default 8; kernels that
+tile rows ask for their tile) and the width k to a multiple of
 `width_align`.
 """
 

@@ -59,7 +59,8 @@ def poisson_3d(nx: int, ny: int | None = None, nz: int | None = None) -> CsrMatr
                               np.concatenate(vals), nrows=n, ncols=n)
 
 
-def sem_2d(ne: int, p: int = 2, shift: float = 1e-3) -> CsrMatrix:
+def sem_2d(ne: int, p: int = 2, shift: float = 1e-3,
+           seed: int | None = None) -> CsrMatrix:
     """SEM-type SPD matrix: ne × ne spectral elements of order p on a 2-D
     quad mesh; every element's (p+1)² nodes form a clique (the assembled
     pressure-Poisson pattern of tj7a/xn3b — SURVEY.md §2.1: ~23 nnz/row
@@ -69,7 +70,10 @@ def sem_2d(ne: int, p: int = 2, shift: float = 1e-3) -> CsrMatrix:
     Values: sum of element clique Laplacians (m·I − J per element, PSD)
     + `shift`·I — SPD with the SEM sparsity pattern; conditioning is mild
     (the pattern, skew, and bandwidth are what the scale experiments
-    need, not the reference's exact spectrum)."""
+    need, not the reference's exact spectrum). With a `seed`, each
+    element's clique is scaled by a coefficient drawn uniformly from
+    [0.5, 2) (a variable-coefficient operator, reproducible from the
+    seed); without one every coefficient is 1."""
     nn = ne * p + 1
     n = nn * nn
     idx = np.arange(n).reshape(nn, nn)
@@ -83,6 +87,9 @@ def sem_2d(ne: int, p: int = 2, shift: float = 1e-3) -> CsrMatrix:
     r = np.repeat(nodes, m, axis=1).ravel()
     c = np.tile(nodes, (1, m)).ravel()
     v = np.where(r == c, float(m - 1), -1.0)
+    if seed is not None:
+        coef = np.random.default_rng(seed).uniform(0.5, 2.0, ne * ne)
+        v = v * np.repeat(coef, m * m)
     dr = np.arange(n)
     return CsrMatrix.from_coo(
         np.concatenate([r, dr]), np.concatenate([c, dr]),

@@ -118,7 +118,7 @@ int lsb_min_degree(int64_t n, const int64_t *offs, const int32_t *cols,
 // class SuiteSparse AMD implements and CHOLMOD's analyze runs
 // (cholmod-impl.h:25). Three accelerations over lsb_min_degree's exact
 // scheme, which is O(sum of boundary scans) and measured 19-21 s at
-// n=262k (RESULTS §4):
+// n=262k:
 //   1. APPROXIMATE external degrees: per pivot, one "w pass" computes
 //      |L_e \ L_p| for every element touching the boundary, so each
 //      boundary variable's degree is a sum over its short lists instead

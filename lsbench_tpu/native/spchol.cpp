@@ -13,11 +13,61 @@
 //   cx           — numeric values of L in the cp/ci layout
 // Returns 0, or 1+j if column j is not positive definite.
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <vector>
 
 extern "C" {
+
+// Elimination tree of a pattern-symmetric CSR matrix (Liu, with path
+// compression) — mirrors sparse_cholesky.py::elimination_tree.
+void lsb_etree(int64_t n, const int64_t *offs, const int32_t *cols,
+               int64_t *parent) {
+  std::vector<int64_t> ancestor(n, -1);
+  for (int64_t i = 0; i < n; ++i) parent[i] = -1;
+  for (int64_t i = 0; i < n; ++i) {
+    for (int64_t t = offs[i]; t < offs[i + 1]; ++t) {
+      int64_t k = cols[t];
+      if (k >= i) continue;
+      while (true) {
+        int64_t a = ancestor[k];
+        ancestor[k] = i;
+        if (a == -1) {
+          if (parent[k] == -1) parent[k] = i;
+          break;
+        }
+        if (a == i) break;
+        k = a;
+      }
+    }
+  }
+}
+
+// Strictly-lower row pattern of L by etree reach — mirrors
+// sparse_cholesky.py::symbolic_rows. With lcols == nullptr it only counts
+// (counts[i] = size of row i); otherwise it writes row i, ascending, at
+// lcols[loffs[i]:loffs[i + 1]].
+void lsb_symbolic_rows(int64_t n, const int64_t *offs, const int32_t *cols,
+                       const int64_t *parent, int64_t *counts,
+                       const int64_t *loffs, int64_t *lcols) {
+  std::vector<int64_t> mark(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t len = 0;
+    int64_t *out = lcols ? lcols + loffs[i] : nullptr;
+    for (int64_t t = offs[i]; t < offs[i + 1]; ++t) {
+      int64_t k = cols[t];
+      while (k != -1 && k < i && mark[k] != i) {
+        mark[k] = i;
+        if (out) out[len] = k;
+        ++len;
+        k = parent[k];
+      }
+    }
+    if (out) std::sort(out, out + len);
+    else counts[i] = len;
+  }
+}
 
 int64_t lsb_chol_numeric(int64_t n, const int64_t *a_offs,
                          const int32_t *a_cols, const double *a_vals,

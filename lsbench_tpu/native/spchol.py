@@ -1,5 +1,5 @@
-"""ctypes binding for the native sparse-Cholesky numeric factor
-(spchol.cpp)."""
+"""ctypes binding for the native sparse-Cholesky symbolic and numeric
+factorization and triangular solve (spchol.cpp)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,12 @@ def _get_lib():
         lib.lsb_tri_solve.argtypes = [ctypes.c_longlong, ctypes.c_longlong,
                                       i64, i64, f64, f64, f64]
         lib.lsb_tri_solve.restype = None
+        lib.lsb_etree.argtypes = [ctypes.c_longlong, i64, i32, i64]
+        lib.lsb_etree.restype = None
+        lib.lsb_symbolic_rows.argtypes = [
+            ctypes.c_longlong, i64, i32, i64, i64,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.lsb_symbolic_rows.restype = None
         _lib = lib
     return _lib
 
@@ -45,6 +51,32 @@ def tri_solve(cp, ci, cx, b) -> np.ndarray:
                       np.ascontiguousarray(cx, np.float64),
                       np.ascontiguousarray(b2.T), x)
     return x[0] if squeeze else x.T
+
+
+def etree(n, offs, cols) -> np.ndarray:
+    """Native elimination tree (sparse_cholesky.elimination_tree)."""
+    lib = _get_lib()
+    parent = np.empty(int(n), dtype=np.int64)
+    lib.lsb_etree(int(n), np.ascontiguousarray(offs, np.int64),
+                  np.ascontiguousarray(cols, np.int32), parent)
+    return parent
+
+
+def symbolic_rows(n, offs, cols, parent) -> tuple[np.ndarray, np.ndarray]:
+    """Native strictly-lower row pattern of L
+    (sparse_cholesky.symbolic_rows): (loffs, lcols), rows ascending."""
+    lib = _get_lib()
+    offs = np.ascontiguousarray(offs, np.int64)
+    cols = np.ascontiguousarray(cols, np.int32)
+    parent = np.ascontiguousarray(parent, np.int64)
+    counts = np.zeros(int(n), dtype=np.int64)
+    lib.lsb_symbolic_rows(int(n), offs, cols, parent, counts, None, None)
+    loffs = np.zeros(int(n) + 1, dtype=np.int64)
+    np.cumsum(counts, out=loffs[1:])
+    lcols = np.empty(int(loffs[-1]), dtype=np.int64)
+    lib.lsb_symbolic_rows(int(n), offs, cols, parent, counts,
+                          loffs.ctypes.data, lcols.ctypes.data)
+    return loffs, lcols
 
 
 def chol_numeric(n, a_offs, a_cols, a_vals, cp, ci, lrow_offs, lrow_cols

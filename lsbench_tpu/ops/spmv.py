@@ -5,10 +5,10 @@ Every solver iteration in the reference bottoms out in a vendored SpMV
 first-party:
 
 - `spmv_ell`: gather-based padded-row SpMV in pure jnp. XLA fuses the
-  gather, multiply, and row-sum; on TPU the gather runs on the VPU and the
-  whole op is HBM-bandwidth bound, which is the roofline for this workload
-  (~23 nnz/row → ≈16–20 B/nnz moved).
-- a Pallas block-sparse kernel lives in spmv_pallas.py for larger matrices.
+  gather, multiply, and row-sum into one kernel; the op is memory-
+  bandwidth bound, which is the roofline for this workload (~23 nnz/row →
+  ≈12–20 B/nnz moved).
+- solvers/cg.py::build_matvec maps layout names onto SpMV operators.
 """
 
 from __future__ import annotations

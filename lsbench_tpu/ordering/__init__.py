@@ -3,7 +3,7 @@
 The reference exposes `--ordering RCM|AMD|METIS` and applies the symmetric
 permutation on the host before factorization (cusparse.c:66-96), delegating
 the algorithms to cuSolver. Here they are first-party: RCM (bandwidth
-reduction — also used to densify TPU block-sparse layouts), AMD (fill
+reduction — also narrows the distributed halo), AMD (fill
 reduction for the direct solver), and native nested dissection (`nd.py`),
 which fills the METIS role — `--ordering metis` dispatches to it.
 """

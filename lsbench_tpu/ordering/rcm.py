@@ -4,9 +4,9 @@ Role equivalent to the reference's `cusolverSpXcsrsymrcmHost` call
 (cusparse.c:69-71). BFS from a pseudo-peripheral start node, visiting
 neighbors in increasing-degree order, then reverse.
 
-On TPU this is doubly useful: beyond direct-solver fill reduction, RCM
-concentrates nonzeros near the diagonal, which densifies the block-sparse
-(BSR) layout the Pallas SpMV kernel streams through the MXU/VPU.
+Beyond direct-solver fill reduction, RCM concentrates nonzeros near the
+diagonal, which narrows the halo of the distributed SpMV and keeps the
+gathered x entries of one row tile close together.
 """
 
 from __future__ import annotations

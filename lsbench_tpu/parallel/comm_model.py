@@ -1,9 +1,7 @@
-"""Static per-iteration communication accounting + ICI scaling model.
+"""Static per-iteration communication accounting + a link scaling model.
 
 The reference has no distributed path to measure (MPI neutered,
-paralmond.cpp:94-102; SURVEY.md §2.2), and this rig exposes one real chip,
-so multi-chip efficiency cannot be measured here directly. What CAN be
-produced honestly:
+paralmond.cpp:94-102; SURVEY.md §2.2). Two things are produced here:
 
 1. **Exact communication volumes** — every distributed solver's per-
    iteration collective schedule is STATIC (built at setup from the halo /
@@ -13,26 +11,20 @@ produced honestly:
    (tests/test_comm_model.py) asserts the accounting matches the
    collectives the solvers actually issue.
 
-2. **A parameterized ICI model** — `predict_efficiency` combines the
-   volumes with (a) the MEASURED single-chip per-iteration time and
-   (b) published v5e ICI parameters (default 45 GB/s usable per link
-   direction, ~1 µs per ring hop) into a strong-scaling efficiency
-   prediction:
+2. **A parameterized link model** — `predict_efficiency` combines the
+   volumes with (a) a measured single-device per-iteration time, (b) a
+   link bandwidth per direction (for the H100 the NVLink entry of
+   harness/profile.py's device table) and (c) a per-hop latency, into a
+   strong-scaling efficiency prediction:
 
        t_D = t_1/D  +  bytes_per_spmv/link_bw  +  hop_lat · hops(D)
        eff = (t_1/D) / t_D
 
    hops(D): a fused psum (all-reduce of ≤3 scalars) is latency-bound —
    2·(D−1) ring hops; each halo ppermute is 1 hop (simultaneous left/
-   right on the bidirectional ring). Compute splits as t_1/D because the
-   single-chip kernel is HBM-bound (RESULTS.md §2) and HBM scales with
-   chips.
-
-The model's structural message (RESULTS.md §7): reference-sized systems
-(n ≤ 6.4k, 22-30 µs/iter) are LATENCY-bound — psum hops eat the
-per-device compute almost immediately, so multi-chip parallelism cannot
-pay at this size; the ≥80%-efficiency regime starts at the n where
-t_1/D ≥ 4·t_comm (a few hundred thousand rows at 8 chips).
+   right). Compute splits as t_1/D because the single-device kernel is
+   memory-bound and memory bandwidth scales with devices. The caller
+   supplies every rate; none is assumed here.
 """
 
 from __future__ import annotations
@@ -63,8 +55,7 @@ class CommVolume:
     gather_hops_per_spmv: int = 0  # ring hops of the gather/scatter
     #                         collectives per SpMV: D−1 for a 1-D
     #                         all_gather, (pr−1)+(pc−1) for the 2-D
-    #                         all_gather+psum_scatter pair (VERDICT r4
-    #                         weak 3: this latency term was omitted)
+    #                         all_gather+psum_scatter pair
 
     @property
     def bytes_per_iter(self) -> int:
@@ -114,13 +105,12 @@ def cg2d_comm_volume(A: CsrMatrix, pr: int, pc: int,
 
 
 def predict_efficiency(t1_iter_s: float, cv: CommVolume,
-                       link_gbps: float = 45.0,
-                       hop_latency_s: float = 1e-6):
+                       link_gbps: float, hop_latency_s: float):
     """Strong-scaling prediction: (efficiency, t_iter_at_D seconds).
 
-    `t1_iter_s` is the MEASURED single-chip per-iteration wall time (the
-    HBM-bound kernel — RESULTS.md §2/§6); defaults are v5e ICI numbers
-    (45 GB/s usable per link direction, ~1 µs/hop)."""
+    `t1_iter_s` is a measured single-device per-iteration wall time;
+    `link_gbps` the usable bandwidth per link direction and
+    `hop_latency_s` the latency of one collective hop."""
     D = cv.n_devices
     if D == 1:
         return 1.0, t1_iter_s
@@ -210,12 +200,9 @@ def amg_comm_volume(solver) -> AmgCommVolume:
         nlf, nlc = npf // D, npc // D
         ha, hr, hp = (solver._halos[l], solver._r_halos[l],
                       solver._p_halos[l])
-        # The fine-level df64 BSR kernel exchanges the f64 x (8 B/row).
-        isz_a = 8 if (l == 0 and solver._fine_bsr is not None
-                      and solver.dtype == jnp.dtype(jnp.float64)) else isz
         # One A-matvec's collective cost (also the K-cycle FCG extra).
         if ha is not None:
-            a_pp, a_ag, a_by = 2, 0, 2 * ha * isz_a
+            a_pp, a_ag, a_by = 2, 0, 2 * ha * isz
         else:
             a_pp, a_ag, a_by = 0, 1, (npf - nlf) * isz
         pp = a_applies * a_pp
@@ -267,9 +254,7 @@ def amg_comm_volume(solver) -> AmgCommVolume:
     if l0.a_strategy == "halo":
         pp_it = pp_cyc + 2
         ag_it = ag_cyc
-        by_it = by_cyc + 2 * l0.a_halo * (
-            8 if (solver._fine_bsr is not None
-                  and solver.dtype == jnp.dtype(jnp.float64)) else isz)
+        by_it = by_cyc + 2 * l0.a_halo * isz
     else:
         pp_it = pp_cyc
         ag_it = ag_cyc + 1
@@ -286,12 +271,11 @@ def amg_comm_volume(solver) -> AmgCommVolume:
 
 def efficiency_crossover_n(nnz_per_row: float, gnnz_per_s: float,
                            n_devices: int, target: float = 0.8,
-                           halo_rows: int = 64, dtype=jnp.float32,
-                           link_gbps: float = 45.0,
-                           hop_latency_s: float = 1e-6) -> int:
+                           halo_rows: int = 64, dtype=jnp.float32, *,
+                           link_gbps: float, hop_latency_s: float) -> int:
     """Smallest n where the model predicts ≥`target` efficiency at
-    `n_devices` chips, for a banded operator with the given density and
-    the measured single-chip SpMV throughput (Gnnz/s → t_1 per CG
+    `n_devices` devices, for a banded operator with the given density and
+    a measured single-device SpMV throughput (Gnnz/s → t_1 per CG
     iteration ≈ nnz / rate). Solved by bisection on n."""
     itemsize = jnp.dtype(dtype).itemsize
 

@@ -36,7 +36,7 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from lsbench_tpu.matrix.csr import CsrMatrix
-from lsbench_tpu.parallel.dist_spmv import fused_psum
+from lsbench_tpu.parallel.dist_spmv import check_local_spmv, fused_psum
 from lsbench_tpu.parallel.mesh import COLS, ROWS
 from lsbench_tpu.solvers.base import SolveResult, Solver
 
@@ -118,176 +118,26 @@ def spmv_2d_local(vals_l, cols_l, x_l):
                                 tiled=True)           # (csize,)
 
 
-@dataclass
-class Spmv2dBsrPlan:
-    """Per-device BSR layouts of the 2-D partition's local operators.
-
-    The gathered coordinate frame keeps bandedness: a global RCM band of
-    width b maps to gathered width ~b/Pc (chunk q lands at position
-    q//Pc), so the local (rloc × Pr·csize) operators stay block-sparse
-    and the flagship Pallas kernel applies — the last gather-ELL local
-    SpMV replaced (VERDICT r2 item 2 closes on the 2-D path too).
-    Stacked (Pr, Pc, …) so they shard as P(ROWS, COLS, …).
-    """
-    bcols: jax.Array              # (Pr, Pc, G*S) int32
-    blocks_hi: jax.Array          # (Pr, Pc, G, S*8, 128) f32
-    blocks_lo: jax.Array | None   # df64 pair or None
-    n: int
-    n_pad: int
-    csize: int
-    rloc: int
-    pr: int
-    pc: int
-    n_gath: int                   # Pr * csize (gathered x width)
-
-
-def build_2d_bsr_plan(A: CsrMatrix, pr: int, pc: int, dtype,
-                      align: int = 8) -> Spmv2dBsrPlan:
-    from lsbench_tpu.matrix.bsr import BC, BsrMatrix
-
-    n = A.nrows
-    P_ = pr * pc
-    csize = _round_up(-(-n // P_), align)
-    n_pad = csize * P_
-    rloc = csize * pc
-    n_gath = pr * csize
-
-    r, c, v = A.to_coo()
-    i_dev = r // rloc
-    q = c // csize
-    j_dev = q % pc
-    lrow = r % rloc
-    lcol = (q // pc) * csize + (c % csize)
-
-    locals_ = []
-    for i in range(pr):
-        row_m = i_dev == i
-        for j in range(pc):
-            m = row_m & (j_dev == j)
-            locals_.append(BsrMatrix.from_csr(
-                CsrMatrix.from_coo(lrow[m], lcol[m], v[m],
-                                   nrows=rloc, ncols=n_gath),
-                dtype=jnp.float64))
-
-    G = max(bl.n_groups for bl in locals_)
-    S = max(bl.slots for bl in locals_)
-    blocks64 = np.zeros((pr, pc, G, S * 8, BC), dtype=np.float64)
-    bcols = np.zeros((pr, pc, G, S), dtype=np.int32)
-    for idx, bl in enumerate(locals_):
-        i, j = idx // pc, idx % pc
-        g, s = bl.n_groups, bl.slots
-        blk = np.asarray(bl.blocks).reshape(g, s, 8, BC)
-        blocks64[i, j, :g, : s * 8, :] = blk.reshape(g, s * 8, BC)
-        bcols[i, j, :g, :s] = np.asarray(bl.block_cols)
-
-    hi = blocks64.astype(np.float32)
-    want_df64 = jnp.dtype(dtype) == jnp.dtype(jnp.float64)
-    lo = ((blocks64 - hi.astype(np.float64)).astype(np.float32)
-          if want_df64 else None)
-    return Spmv2dBsrPlan(
-        bcols=jnp.asarray(bcols.reshape(pr, pc, G * S)),
-        blocks_hi=jnp.asarray(hi),
-        blocks_lo=None if lo is None else jnp.asarray(lo),
-        n=n, n_pad=n_pad, csize=csize, rloc=rloc, pr=pr, pc=pc,
-        n_gath=n_gath)
-
-
-def spmv_2d_bsr_local(rloc: int, n_gath: int, bcols_l, blocks_l, x_l,
-                      interpret: bool | None = None):
-    """Inside shard_map over (ROWS, COLS): all_gather → Pallas f32 BSR
-    local SpMV → psum_scatter. bcols_l: (1,1,G*S); blocks_l:
-    (1,1,G,S*8,128); x_l: (csize,) → (csize,) f32. `rloc` is the TRUE
-    local row count (G·8 is padded up to the grid multiple)."""
-    from lsbench_tpu.matrix.bsr import BC, BR
-    from lsbench_tpu.ops.spmv_pallas import _spmv_bsr_call
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    xg = jax.lax.all_gather(x_l.astype(jnp.float32), ROWS, tiled=True)
-    n_cb = -(-n_gath // BC)
-    x_pad = jnp.zeros(n_cb * BC, jnp.float32).at[:n_gath].set(xg)
-    y = _spmv_bsr_call(bcols_l.reshape(-1), x_pad.reshape(n_cb, BC),
-                       blocks_l[0, 0], br=BR, interpret=interpret)
-    return jax.lax.psum_scatter(y.reshape(-1)[:rloc], COLS,
-                                scatter_dimension=0, tiled=True)
-
-
-def spmv_2d_bsr_df64_local(rloc: int, n_gath: int, bcols_l, bh_l, bl_l,
-                           x_l, interpret: bool | None = None):
-    """Double-float (f64) 2-D BSR local SpMV: f64-accurate partials,
-    psum_scatter reduction in f64."""
-    from lsbench_tpu.matrix.bsr import BC, BR
-    from lsbench_tpu.ops.spmv_pallas import _spmv_bsr_df64_call
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    xg = jax.lax.all_gather(x_l.astype(jnp.float64), ROWS, tiled=True)
-    n_cb = -(-n_gath // BC)
-    x_pad = jnp.zeros(n_cb * BC, jnp.float64).at[:n_gath].set(xg)
-    xh = x_pad.astype(jnp.float32)
-    xl = (x_pad - xh.astype(jnp.float64)).astype(jnp.float32)
-    yh, yl = _spmv_bsr_df64_call(
-        bcols_l.reshape(-1), xh.reshape(n_cb, BC), xl.reshape(n_cb, BC),
-        bh_l[0, 0], bl_l[0, 0], br=BR, interpret=interpret)
-    y = yh.astype(jnp.float64) + yl.astype(jnp.float64)
-    return jax.lax.psum_scatter(y.reshape(-1)[:rloc], COLS,
-                                scatter_dimension=0, tiled=True)
-
-
 def build_2d_matvec(A: CsrMatrix, mesh: Mesh, dtype,
                     local_spmv: str = "auto"):
-    """Resolve the 2-D local SpMV (Pallas BSR on TPU, gather-ELL
-    elsewhere) and build the sharded operator — the 2-D twin of
+    """Build the sharded 2-D ELL operator — the 2-D twin of
     dist_spmv.build_dist_matvec. Returns (op_args, op_specs, matvec,
-    local_spmv, plan, check_vma) with `matvec(op_l, x_l)` valid inside
-    shard_map over the (ROWS, COLS) mesh."""
+    local_spmv, plan) with `matvec(op_l, x_l)` valid inside shard_map
+    over the (ROWS, COLS) mesh."""
+    check_local_spmv(local_spmv)
     pr, pc = mesh.shape[ROWS], mesh.shape[COLS]
     dtype = jnp.dtype(dtype)
     plan = build_2d_plan(A, pr, pc, dtype)
-    if local_spmv == "auto":
-        use_bsr = jax.default_backend() == "tpu"
-    elif local_spmv in ("bsr", "ell"):
-        use_bsr = local_spmv == "bsr"
-    else:
-        raise ValueError(f"unknown local_spmv '{local_spmv}' "
-                         "(auto | bsr | ell)")
-
     blk_shard4 = NamedSharding(mesh, P(ROWS, COLS, None, None))
-    if use_bsr:
-        bp = build_2d_bsr_plan(A, pr, pc, dtype)
-        assert bp.n_pad == plan.n_pad
-        blk_shard3 = NamedSharding(mesh, P(ROWS, COLS, None))
-        blk_shard5 = NamedSharding(mesh, P(ROWS, COLS, None, None, None))
-        ng, rl = bp.n_gath, bp.rloc
-        if dtype == jnp.dtype(jnp.float64):
-            op_args = (jax.device_put(bp.bcols, blk_shard3),
-                       jax.device_put(bp.blocks_hi, blk_shard5),
-                       jax.device_put(bp.blocks_lo, blk_shard5))
-            op_specs = (P(ROWS, COLS, None),
-                        P(ROWS, COLS, None, None, None),
-                        P(ROWS, COLS, None, None, None))
+    op_args = (jax.device_put(plan.vals, blk_shard4),
+               jax.device_put(plan.cols, blk_shard4))
+    op_specs = (P(ROWS, COLS, None, None), P(ROWS, COLS, None, None))
 
-            def matvec(op_l, x_l):
-                return spmv_2d_bsr_df64_local(rl, ng, *op_l, x_l)
-        else:
-            op_args = (jax.device_put(bp.bcols, blk_shard3),
-                       jax.device_put(bp.blocks_hi, blk_shard5))
-            op_specs = (P(ROWS, COLS, None),
-                        P(ROWS, COLS, None, None, None))
+    def matvec(op_l, x_l):
+        return spmv_2d_local(op_l[0].reshape(op_l[0].shape[2:]),
+                             op_l[1].reshape(op_l[1].shape[2:]), x_l)
 
-            def matvec(op_l, x_l):
-                return spmv_2d_bsr_local(rl, ng, *op_l, x_l).astype(dtype)
-    else:
-        op_args = (jax.device_put(plan.vals, blk_shard4),
-                   jax.device_put(plan.cols, blk_shard4))
-        op_specs = (P(ROWS, COLS, None, None), P(ROWS, COLS, None, None))
-
-        def matvec(op_l, x_l):
-            return spmv_2d_local(op_l[0].reshape(op_l[0].shape[2:]),
-                                 op_l[1].reshape(op_l[1].shape[2:]), x_l)
-
-    return (op_args, op_specs, matvec, "bsr" if use_bsr else "ell",
-            plan, not use_bsr)
+    return op_args, op_specs, matvec, "ell", plan
 
 
 class DistributedCg2d(Solver):
@@ -309,8 +159,8 @@ class DistributedCg2d(Solver):
         self.maxiter = (int(maxiter) if maxiter is not None
                         else max(10 * A.nrows, 1000))
 
-        (op_args, op_specs, local_matvec, self.local_spmv, plan,
-         check_vma) = build_2d_matvec(A, mesh, self.dtype, local_spmv)
+        (op_args, op_specs, local_matvec, self.local_spmv,
+         plan) = build_2d_matvec(A, mesh, self.dtype, local_spmv)
         self.plan = plan
         self.n, self.n_pad = plan.n, plan.n_pad
 
@@ -328,8 +178,7 @@ class DistributedCg2d(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*op_specs, P(both), P(both)),
-                 out_specs=(P(both), P(), P()),
-                 check_vma=check_vma)
+                 out_specs=(P(both), P(), P()))
         def _cg(*sm_args):
             *op_l, inv_diag_l, b_l = sm_args
 
@@ -412,8 +261,8 @@ class DistributedBicgstab2d(Solver):
         self.rtol = float(rtol)
         self.maxiter = (int(maxiter) if maxiter is not None
                         else max(10 * A.nrows, 1000))
-        (op_args, op_specs, local_matvec, self.local_spmv, plan,
-         check_vma) = build_2d_matvec(A, mesh, self.dtype, local_spmv)
+        (op_args, op_specs, local_matvec, self.local_spmv,
+         plan) = build_2d_matvec(A, mesh, self.dtype, local_spmv)
         self.plan, self.n, self.n_pad = plan, plan.n, plan.n_pad
 
         vec_shard = NamedSharding(mesh, P((ROWS, COLS)))
@@ -429,8 +278,7 @@ class DistributedBicgstab2d(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*op_specs, P(both), P(both)),
-                 out_specs=(P(both), P(), P(), P()),
-                 check_vma=check_vma)
+                 out_specs=(P(both), P(), P(), P()))
         def _run(*sm_args):
             *op_l, inv_diag_l, b_l = sm_args
 
@@ -501,7 +349,7 @@ class DistributedBicgstab2d(Solver):
 class DistributedBlockCg2d(Solver):
     """Multi-RHS (block) CG on the 2-D partition: the --nrhs k × --mesh RxC
     composition. Same precision structure as the 1-D dist_block_cg (f32
-    simultaneous-column inner PCG + double-float f64 per-column residual
+    simultaneous-column inner PCG + f64 per-column residual
     refinement); the k columns ride ONE BATCHED all_gather + psum_scatter
     per operator application (the local matvec vmapped over columns —
     collective batching rules merge the k transfers)."""
@@ -513,7 +361,7 @@ class DistributedBlockCg2d(Solver):
                  ordering: str = "none", local_spmv: str = "auto",
                  dtype=None, **params):
         super().__init__(A, **params)
-        del dtype  # fixed structure: f32 SpMM inner / df64 outer
+        del dtype  # fixed structure: f32 SpMM inner / f64 outer
         if set(mesh.axis_names) != {ROWS, COLS}:
             raise ValueError(f"need a ({ROWS},{COLS}) mesh, "
                              f"got {mesh.axis_names}")
@@ -527,10 +375,10 @@ class DistributedBlockCg2d(Solver):
                         else max(10 * A.nrows, 1000))
         self.max_refine = int(max_refine)
 
-        (op32_args, op32_specs, mv32, self.local_spmv, plan,
-         cv32) = build_2d_matvec(A, mesh, jnp.float32, local_spmv)
-        (op64_args, op64_specs, mv64, _, plan64,
-         cv64) = build_2d_matvec(A, mesh, jnp.float64, self.local_spmv)
+        (op32_args, op32_specs, mv32, self.local_spmv,
+         plan) = build_2d_matvec(A, mesh, jnp.float32, local_spmv)
+        (op64_args, op64_specs, mv64, _,
+         plan64) = build_2d_matvec(A, mesh, jnp.float64, self.local_spmv)
         assert plan64.n_pad == plan.n_pad
         self.plan = plan
         self.n, self.n_pad = plan.n, plan.n_pad
@@ -551,8 +399,7 @@ class DistributedBlockCg2d(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*op32_specs, *op64_specs, P(both), P(both, None)),
-                 out_specs=(P(both, None), P(None), P(None), P(), P()),
-                 check_vma=cv32 and cv64)
+                 out_specs=(P(both, None), P(None), P(None), P(), P()))
         def _solve(*args):
             op32_l = tuple(args[:n32])
             op64_l = tuple(args[n32:-2])

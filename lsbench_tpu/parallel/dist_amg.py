@@ -2,7 +2,7 @@
 
 The reference has no working distributed AMG — Hypre is compiled MPI-off
 (libs/hypre.cmake:31) and parAlmond asserts a single rank
-(paralmond.cpp:39). This is the TPU-native design (SURVEY.md §7.6):
+(paralmond.cpp:39). This is the design here (SURVEY.md §7.6):
 
 - setup on host builds the same hierarchy as the single-chip path
   (solvers/amg.py `build_matrix_hierarchy` — SA or classical coarsening),
@@ -77,7 +77,7 @@ class _DistAmgBase(Solver):
     def __init__(self, A: CsrMatrix, mesh: Mesh, dtype=jnp.float64,
                  theta=None, coarsening="sa", smoother="chebyshev", degree=2,
                  interp="direct", interp_passes=1, interp_omega=1.0, pmax=4,
-                 pre_sweeps=1, post_sweeps=1, coarse_n=64, cycle="v",
+                 pre_sweeps=1, post_sweeps=1, coarse_n=128, cycle="v",
                  max_levels=12, jacobi_scale=4.0 / 3.0, cheby_lower=0.30,
                  ordering="rcm", comm="auto", local_spmv="auto", **params):
         super().__init__(A, **params)
@@ -87,9 +87,12 @@ class _DistAmgBase(Solver):
         n_dev = mesh.devices.size
         self.n_dev = n_dev
 
-        # RCM on the fine level + RCM renumbering of every coarse level
-        # keeps all operators banded, so the smoother matvecs can use the
-        # O(halo) ppermute ring instead of O(n) all_gather (SURVEY.md §7.6).
+        # A banded fine level (RCM, or a grid ordering) + coarse numbering
+        # aligned to it (opts.align_coarse) keeps all operators banded, so
+        # the smoother matvecs can use the O(halo) ppermute ring instead
+        # of O(n) all_gather (SURVEY.md §7.6). Coarse levels are NOT
+        # renumbered before the next coarsening, so the hierarchy is the
+        # single-device one for the same ordering.
         from lsbench_tpu.ordering import get_ordering
         perm = get_ordering(ordering, A)
         identity = bool(np.all(perm == np.arange(A.nrows)))
@@ -99,7 +102,7 @@ class _DistAmgBase(Solver):
         inv[perm] = np.arange(A.nrows)
         self._invperm = None if identity else inv
 
-        self._Ap = Ap  # permuted operator (for df64 residual matvecs)
+        self._Ap = Ap  # permuted operator (for f64 residual matvecs)
         opts = AmgOptions(theta=theta, coarsening=coarsening, cycle=cycle,
                           smoother=smoother, degree=degree, interp=interp,
                           interp_passes=interp_passes,
@@ -107,7 +110,7 @@ class _DistAmgBase(Solver):
                           pre_sweeps=pre_sweeps, post_sweeps=post_sweeps,
                           coarse_n=coarse_n, max_levels=max_levels,
                           jacobi_scale=jacobi_scale, cheby_lower=cheby_lower,
-                          reorder_coarse=(comm != "all_gather"))
+                          reorder_coarse=False)
         self.opts = opts
         mats, Acoarse = build_matrix_hierarchy(
             Ap, opts, breakdown=self.setup_breakdown)
@@ -127,20 +130,8 @@ class _DistAmgBase(Solver):
         def shard2(x):
             return jax.device_put(x, row2)
 
-        # Fine-level local SpMV: the Pallas BSR kernel (f32, or double-
-        # float for f64) inside shard_map — the smoother matvecs at level 0
-        # carry ~all the nnz traffic, so this is where the 48× gather→BSR
-        # win lands (VERDICT r2 item 2). Coarse levels stay ELL (latency-
-        # bound either way). "auto": BSR on TPU whenever level 0 is banded.
-        if local_spmv == "auto":
-            want_bsr = jax.default_backend() == "tpu"
-        elif local_spmv in ("bsr", "ell"):
-            want_bsr = local_spmv == "bsr"
-        else:
-            raise ValueError(f"unknown local_spmv '{local_spmv}' "
-                             "(auto | bsr | ell)")
-        self._fine_bsr = None  # (halo, nloc, n_ext) when BSR engages
-        blk_spec = P(ROWS, None, None, None)
+        from lsbench_tpu.parallel.dist_spmv import check_local_spmv
+        check_local_spmv(local_spmv)
 
         levels_dev = []
         levels_spec = []
@@ -162,25 +153,6 @@ class _DistAmgBase(Solver):
             self._halos.append(halo)
             lvl = {}
             spec = {}
-            if l == 0 and want_bsr and halo is not None:
-                from lsbench_tpu.parallel.dist_spmv import build_halo_bsr_plan
-                bp = build_halo_bsr_plan(m["A"], n_dev, self.dtype)
-                if not bp.needs_all_gather:
-                    assert bp.n_pad == npf
-                    self._fine_bsr = (bp.halo, bp.nloc, bp.n_ext)
-                    lvl["bc"] = shard2(bp.bcols)
-                    spec["bc"] = P(ROWS, None)
-                    lvl["bh"] = jax.device_put(
-                        bp.blocks_hi, NamedSharding(mesh, blk_spec))
-                    spec["bh"] = blk_spec
-                    if bp.blocks_lo is not None:
-                        lvl["blo"] = jax.device_put(
-                            bp.blocks_lo, NamedSharding(mesh, blk_spec))
-                        spec["blo"] = blk_spec
-                    # The ELL arrays for level 0 are dead on the BSR path;
-                    # ship (n_dev, 1) stubs instead of n×k live arrays.
-                    av = jnp.zeros((n_dev, 1), dtype=self.dtype)
-                    ac = jnp.zeros((n_dev, 1), dtype=jnp.int32)
             # Transfer operators: rectangular halo plans (fine/coarse
             # block sizes differ) — R gathers from the fine vector, P
             # from the coarse one; all_gather only when the reach exceeds
@@ -216,11 +188,7 @@ class _DistAmgBase(Solver):
                         dinv=P(ROWS))
             levels_dev.append(lvl)
             levels_spec.append(spec)
-        self.local_spmv = "bsr" if self._fine_bsr is not None else "ell"
-        # check_vma off when the fine level runs the Pallas kernel:
-        # pallas_call's out_shape carries no varying-mesh-axes annotation,
-        # which shard_map's checker rejects.
-        self._check_vma = self._fine_bsr is None
+        self.local_spmv = "ell"
 
         # Coarsest: replicated dense factor padded with identity rows.
         npL = pads[-1]
@@ -244,28 +212,15 @@ class _DistAmgBase(Solver):
         p_halos, r_halos = self._p_halos, self._r_halos
         import jax.scipy.linalg as jsl
 
-        from lsbench_tpu.parallel.dist_spmv import (
-            halo_spmv_bsr_df64_local, halo_spmv_bsr_local, halo_spmv_local)
-
-        fine_bsr = self._fine_bsr
-        dt = self.dtype
-        df64 = dt == jnp.dtype(jnp.float64)
+        from lsbench_tpu.parallel.dist_spmv import halo_spmv_local
 
         def matvec(vals_l, cols_l, x_l):
             xf = jax.lax.all_gather(x_l, ROWS, tiled=True)
             return jnp.sum(vals_l * xf[cols_l], axis=1)
 
         def a_matvec(lvl, L, x_l):
-            """Level operator: fine level → Pallas BSR kernel when banded
-            (f32 / double-float f64); else O(halo) ppermute ring when
-            banded; else all_gather."""
-            if lvl == 0 and fine_bsr is not None:
-                h, nl, ne = fine_bsr
-                if df64:
-                    return halo_spmv_bsr_df64_local(
-                        h, nl, ne, L["bc"], L["bh"], L["blo"], x_l)
-                return halo_spmv_bsr_local(
-                    h, nl, ne, L["bc"], L["bh"], x_l).astype(dt)
+            """Level operator: O(halo) ppermute ring when banded; else
+            all_gather."""
             if halos[lvl] is not None:
                 return halo_spmv_local(halos[lvl], L["av"], L["ac"], x_l)
             return matvec(L["av"], L["ac"], x_l)
@@ -387,8 +342,7 @@ class DistributedAmg(_DistAmgBase):
         cycles_c, rtol_c, maxiter_c = self.cycles, self.rtol, self.maxiter
 
         @partial(shard_map, mesh=self.mesh, in_specs=spec,
-                 out_specs=(P(ROWS), P(), P(), P()),
-                 check_vma=self._check_vma)
+                 out_specs=(P(ROWS), P(), P(), P()))
         def _run(levels, coarse_L, b_l):
             fine = levels[0]
             bb = jax.lax.psum(jnp.vdot(b_l, b_l), ROWS)
@@ -430,7 +384,7 @@ class DistributedAmg(_DistAmgBase):
             conv = True
         else:
             # Converge mode: judge against the host fp64 TRUE residual —
-            # an f32 recurrence can sit ~30x below truth (VERDICT r3 weak 6).
+            # an f32 recurrence can sit ~30x below truth.
             true_rel = self.true_relres(x_host, b)
             extra["true_relres"] = true_rel
             conv = true_rel <= self.rtol
@@ -462,8 +416,7 @@ class DistributedAmgCg(_DistAmgBase):
         rtol_c, maxiter_c = self.rtol, self.maxiter
 
         @partial(shard_map, mesh=self.mesh, in_specs=spec,
-                 out_specs=(P(ROWS), P(), P()),
-                 check_vma=self._check_vma)
+                 out_specs=(P(ROWS), P(), P()))
         def _cg(levels, coarse_L, b_l):
             fine = levels[0]
 
@@ -526,14 +479,13 @@ class DistributedAmgCg(_DistAmgBase):
 
 class DistributedAmgCgIr(_DistAmgBase):
     """Mixed-precision distributed AMG-CG: f32 AMG-CG inner solves +
-    double-float f64 residual refinement, all in ONE shard_map program.
+    f64 residual refinement, all in ONE shard_map program.
 
     The f32 cycle's recursive residual departs the true residual below
-    ~1e-6 (measured: dist AMG-CG at rtol 1e-6 reaches TRUE relres only
-    ~3e-5 — RESULTS.md §6), so an honest 1e-10 distributed AMG solve
-    needs the refinement structure of parallel/dist_cg_ir.py: per pass,
-    solve A d ≈ r with f32 AMG-CG to `inner_rtol`, then recompute the
-    f64 residual with the double-float Pallas BSR matvec and one psum.
+    ~1e-6, so an honest 1e-10 distributed AMG solve needs the refinement
+    structure of parallel/dist_cg_ir.py: per pass, solve A d ≈ r with
+    f32 AMG-CG to `inner_rtol`, then recompute the f64 residual with an
+    f64 matvec and one psum.
     """
 
     name = "dist_amg_cg_ir"
@@ -560,8 +512,7 @@ class DistributedAmgCgIr(_DistAmgBase):
         n64 = len(dm64.op_specs)
 
         @partial(shard_map, mesh=self.mesh, in_specs=spec,
-                 out_specs=(P(ROWS), P(), P(), P(), P()),
-                 check_vma=self._check_vma and dm64.check_vma)
+                 out_specs=(P(ROWS), P(), P(), P(), P()))
         def _solve(levels, coarse_L, *rest):
             op64_l = tuple(rest[:n64])
             b_l = rest[n64]

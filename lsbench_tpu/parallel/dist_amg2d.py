@@ -1,5 +1,5 @@
 """AMG-preconditioned CG on the 2-D block partition (SURVEY.md §5's
-very-large-matrix axis, completed for the AMG family — VERDICT r3 next 4).
+very-large-matrix axis, completed for the AMG family).
 
 Every hierarchy operator (A_l, P_l, R_l) is a RECTANGULAR 2-D-partitioned
 sparse matrix applied with the same all_gather(ROWS) → local ELL →
@@ -15,8 +15,8 @@ Per-application communication: each operator costs O(n_l/Pc) inbound +
 O(n_l/Pr) outbound per device (2·n_l/√P on a square mesh) vs the 1-D
 path's O(halo) ring (banded) or O(n) all_gather (general). The 2-D
 partition therefore wins exactly when the operator is NOT banded enough
-for the halo ring and n is large — the regime RESULTS.md §7's model
-quantifies; at reference sizes the 1-D path dominates.
+for the halo ring and n is large — the regime parallel/comm_model.py's
+model quantifies; at reference sizes the 1-D path dominates.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class DistributedAmgCg2d(Solver):
                  rtol=1e-8, maxiter=None, theta=None, coarsening="sa",
                  smoother="chebyshev", degree=2, interp="direct",
                  interp_passes=1, interp_omega=1.0, pmax=4,
-                 pre_sweeps=1, post_sweeps=1, coarse_n=64, max_levels=12,
+                 pre_sweeps=1, post_sweeps=1, coarse_n=128, max_levels=12,
                  jacobi_scale=4.0 / 3.0, cheby_lower=0.30,
                  ordering="rcm", **params):
         super().__init__(A, **params)

@@ -62,8 +62,7 @@ class DistributedBicgstab(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*dm.op_specs, P(ROWS), P(ROWS)),
-                 out_specs=(P(ROWS), P(), P(), P()),
-                 check_vma=dm.check_vma)
+                 out_specs=(P(ROWS), P(), P(), P()))
         def _run(*args):
             *op_l, inv_diag_l, b_l = args
 

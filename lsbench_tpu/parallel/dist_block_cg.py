@@ -1,24 +1,21 @@
 """Distributed multi-RHS (block) CG: A X = B over a block-row mesh.
 
-`--nrhs k --devices N` composing (VERDICT r2 item 7): the k RHS columns
-ride the SAME streamed BSR blocks as a single SpMV — the halo exchange
-moves (H, k) boundary rows (ppermute), the local SpMM is one Pallas MXU
-dot_general per block slot (parallel/dist_spmv.py::halo_spmm_bsr_local),
-so effective nnz/s scales ~k× for the same HBM traffic per device.
+`--nrhs k --devices N` composing: the k RHS columns ride the SAME matrix
+stream as a single SpMV — the halo exchange moves (H, k) boundary rows
+(ppermute), the local SpMM is one ELL gather-multiply-reduce over k
+columns (parallel/dist_spmv.py::halo_spmm_ell_local), so effective nnz/s
+scales with k for the same matrix traffic per device.
 
 The iteration is the simultaneous-column PCG (per-column alpha/beta,
 converged columns frozen by masking — solvers/block_cg.py's fallback
 method), NOT the shared-subspace BCGrQ: the shared method's
 orthonormalization is a Householder QR, which has no shard_map
 decomposition (CholQR would psum the Gram matrix cleanly but is the
-variant measured to break at rank collapse). Simultaneous needs ~1.5×
-the block iterations (RESULTS.md §5) but each is one SpMM + two fused
-(k,)-vector psums — still ~k×/1.5 cheaper per solution than k separate
-distributed solves.
+variant measured to break at rank collapse). Simultaneous needs more
+block iterations, but each is one SpMM + two fused (k,)-vector psums.
 
-Precision structure follows the library flagship: f32 inner block CG +
-double-float f64 per-column residual refinement (one df64 SpMV per
-column per PASS), reaching direct tolerance 1e-10 at f32 SpMM cost.
+Precision structure: f32 inner block CG + f64 per-column residual
+refinement (one f64 SpMM per PASS), reaching direct tolerance 1e-10.
 """
 
 from __future__ import annotations
@@ -39,7 +36,7 @@ from lsbench_tpu.solvers.base import SolveResult, Solver
 
 
 class DistributedBlockCg(Solver):
-    """Simultaneous-column block PCG over a row mesh, f32 + df64 refine."""
+    """Simultaneous-column block PCG over a row mesh, f32 + f64 refine."""
 
     name = "dist_block_cg"
 
@@ -48,7 +45,7 @@ class DistributedBlockCg(Solver):
                  ordering="none", strategy="auto", local_spmv="auto",
                  row_align: int = 8, dtype=None, **params):
         super().__init__(A, **params)
-        del dtype  # fixed structure: f32 SpMM inner / df64 outer
+        del dtype  # fixed structure: f32 SpMM inner / f64 outer
         A, self._ord = resolve_dist_ordering(A, ordering)
         self.mesh = mesh
         self.nrhs = int(nrhs)
@@ -87,8 +84,7 @@ class DistributedBlockCg(Solver):
         @partial(shard_map, mesh=mesh,
                  in_specs=(*dm32.op_specs, *dm64.op_specs, P(ROWS),
                            P(ROWS, None)),
-                 out_specs=(P(ROWS, None), P(None), P(None), P(), P()),
-                 check_vma=dm32.check_vma and dm64.check_vma)
+                 out_specs=(P(ROWS, None), P(None), P(None), P(), P()))
         def _solve(*args):
             op32_l = tuple(args[:n32])
             op64_l = tuple(args[n32:-2])
@@ -96,8 +92,9 @@ class DistributedBlockCg(Solver):
 
             def cdots_psum(*pairs):
                 """Fused per-column dots: each pair (u,v) -> psum (k,)."""
-                local = jnp.stack([jnp.einsum("nk,nk->k", u, v)
-                                   for u, v in pairs])
+                local = jnp.stack([jnp.einsum(
+                    "nk,nk->k", u, v, precision=jax.lax.Precision.HIGHEST)
+                    for u, v in pairs])
                 s = jax.lax.psum(local, ROWS)
                 return tuple(s[i] for i in range(len(pairs)))
 

@@ -1,6 +1,6 @@
 """Distributed (block-row partitioned) preconditioned CG via shard_map.
 
-The TPU-native replacement for the reference's non-existent multi-device
+The replacement for the reference's non-existent multi-device
 path (SURVEY.md §2.2): the matrix is partitioned by contiguous row blocks
 over a 1-D mesh; vectors are row-sharded. Per iteration:
 
@@ -44,7 +44,7 @@ class DistributedCg(Solver):
                  local_spmv: str = "auto", ordering: str = "none", **params):
         super().__init__(A, **params)
         # Host-side symmetric reordering (cusparse.c:66-96 role): densifies
-        # the band, shrinking both the halo and the Pallas BSR block count.
+        # the band, shrinking the halo.
         from lsbench_tpu.parallel.perm import resolve_dist_ordering
         A, self._ord = resolve_dist_ordering(A, ordering)
         self.mesh = mesh
@@ -57,7 +57,6 @@ class DistributedCg(Solver):
                                local_spmv=local_spmv, row_align=row_align)
         self.strategy = dm.strategy
         self.plan = dm.plan
-        self.bsr_plan = dm.bsr_plan
         self.local_spmv = dm.local_spmv
         self.n = A.nrows
         self.n_pad = dm.n_pad
@@ -90,7 +89,8 @@ class DistributedCg(Solver):
 
             def papply(pstate_l, r_vec):
                 z = jnp.einsum("bij,bj->bi", pstate_l,
-                               r_vec.reshape(pstate_l.shape[0], k))
+                               r_vec.reshape(pstate_l.shape[0], k),
+                               precision=jax.lax.Precision.HIGHEST)
                 return z.reshape(-1)
         elif precond == "jacobi":
             d = np.ones(self.n_pad)
@@ -109,12 +109,9 @@ class DistributedCg(Solver):
         rtol_c, maxiter_c = self.rtol, self.maxiter
         local_matvec = dm.matvec
 
-        # check_vma off on the BSR path: pallas_call's out_shape carries no
-        # varying-mesh-axes annotation, which shard_map's checker rejects.
         @partial(shard_map, mesh=mesh,
                  in_specs=(*op_specs, pspec, P(ROWS)),
-                 out_specs=(P(ROWS), P(), P()),
-                 check_vma=dm.check_vma)
+                 out_specs=(P(ROWS), P(), P()))
         def _cg(*args):
             *op_l, inv_diag_l, b_l = args
 
@@ -170,7 +167,7 @@ class DistributedCg(Solver):
         # shard boundaries would need a resharding collective).
         x_host = self._ord.unpermute_x(fetch_global(x, self.n))
         # Honest convergence: judge against the host fp64 TRUE residual,
-        # not the (possibly f32) recurrence (VERDICT r3 weak 6).
+        # not the (possibly f32) recurrence.
         true_rel = self.true_relres(x_host, b)
         return SolveResult(x=x_host, iters=int(iters), relres=relres,
                            converged=true_rel <= self.rtol,

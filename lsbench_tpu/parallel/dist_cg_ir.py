@@ -1,15 +1,11 @@
 """Distributed mixed-precision Krylov: f32 inner solves + f64 refinement.
 
-The distributed twin of solvers/refine.py::KrylovIrSolver, and the
-production fp64 solve mode over a mesh: TPU f64 is emulated, so running
-every Krylov iteration in f64 (or double-float) pays ~2-3x per matvec.
-Instead:
+The distributed twin of solvers/refine.py::KrylovIrSolver:
 
 - the inner Krylov method iterates entirely in f32 on the halo-exchange
-  Pallas BSR path (parallel/dist_spmv.py), with fused `psum` reductions;
-- once per refinement pass, the f64 residual r = b - A x is computed with
-  the double-float Pallas kernel (hi+lo block pair, ~2^-49) and reduced
-  with one more psum;
+  ELL path (parallel/dist_spmv.py), with fused `psum` reductions;
+- once per refinement pass, the f64 residual r = b - A x is computed in
+  native f64 and reduced with one more psum;
 - each pass gains ~6 digits; 2-3 passes reach the reference's direct
   tolerance 1e-10 (cusparse.c:184) at f32 per-iteration cost.
 
@@ -46,6 +42,8 @@ from lsbench_tpu.solvers.base import SolveResult, Solver
 # local f32 right-hand side. Stop on the recursive residual relative to
 # ||rhs|| (the f64 outer loop owns the true-residual contract). Returns
 # (local solution shard, iteration count).
+
+_HP = jax.lax.Precision.HIGHEST  # no TF32 for f32 Arnoldi products
 
 
 def _cg_inner(mv, invd_l, rhs_l, inner_rtol, maxiter, axis=ROWS):
@@ -147,10 +145,10 @@ def _gmres_inner(mv, invd_l, rhs_l, inner_rtol, maxiter, restart,
             V, H = carry
             w = mv(invd_l * V[j])
             mask = (jnp.arange(m + 1) <= j).astype(dt)
-            h1 = jax.lax.psum(V @ w, axis) * mask
-            w = w - V.T @ h1
-            h2 = jax.lax.psum(V @ w, axis) * mask
-            w = w - V.T @ h2
+            h1 = jax.lax.psum(jnp.matmul(V, w, precision=_HP), axis) * mask
+            w = w - jnp.matmul(V.T, h1, precision=_HP)
+            h2 = jax.lax.psum(jnp.matmul(V, w, precision=_HP), axis) * mask
+            w = w - jnp.matmul(V.T, h2, precision=_HP)
             h = h1 + h2
             hnext = jnp.sqrt(pdot(w, w))
             V = V.at[j + 1].set(w / jnp.maximum(hnext, eps_break))
@@ -161,8 +159,9 @@ def _gmres_inner(mv, invd_l, rhs_l, inner_rtol, maxiter, restart,
         e1 = jnp.zeros(m + 1, dt).at[0].set(beta)
         q, rr = jnp.linalg.qr(H, mode="reduced")
         y = jax.scipy.linalg.solve_triangular(
-            rr + eps_break * jnp.eye(m, dtype=dt), q.T @ e1, lower=False)
-        return x_l + invd_l * (V[:m].T @ y)
+            rr + eps_break * jnp.eye(m, dtype=dt),
+            jnp.matmul(q.T, e1, precision=_HP), lower=False)
+        return x_l + invd_l * jnp.matmul(V[:m].T, y, precision=_HP)
 
     def cond(s):
         x, rn, it = s
@@ -186,8 +185,8 @@ class DistributedKrylovIr(Solver):
     """f32 distributed inner Krylov solve + f64 distributed refinement.
 
     Subclasses pick the inner method via `_make_inner()`; everything else
-    (the df64 residual pass, the VMEM-residency program shape, ordering
-    gathers) is shared.
+    (the f64 residual pass, the device-side ordering gathers) is
+    shared.
     """
 
     def __init__(self, A: CsrMatrix, mesh: Mesh, rtol=1e-10, inner_rtol=1e-5,
@@ -207,7 +206,7 @@ class DistributedKrylovIr(Solver):
 
         # Same partition for both operators (nloc depends only on
         # n / n_devices / row_align): f32 for the inner iteration, f64
-        # (double-float BSR on TPU, f64 ELL elsewhere) for the residual.
+        # for the residual.
         dm32 = build_dist_matvec(A, mesh, jnp.float32, strategy=strategy,
                                  local_spmv=local_spmv, row_align=row_align)
         dm64 = build_dist_matvec(A, mesh, jnp.float64, strategy=dm32.strategy,
@@ -236,8 +235,7 @@ class DistributedKrylovIr(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*dm32.op_specs, *dm64.op_specs, P(ROWS), P(ROWS)),
-                 out_specs=(P(ROWS), P(), P(), P(), P()),
-                 check_vma=dm32.check_vma and dm64.check_vma)
+                 out_specs=(P(ROWS), P(), P(), P(), P()))
         def _solve(*args):
             op32_l = tuple(args[:n32])
             op64_l = tuple(args[n32:-2])
@@ -255,7 +253,7 @@ class DistributedKrylovIr(Solver):
                 return jnp.logical_and(passes < max_refine_c, rr > tol2)
 
             def refine_body(s):
-                # One f64 (double-float) SpMV per PASS, not per iteration
+                # One f64 SpMV per PASS, not per iteration
                 # — the residual carries across passes.
                 x, r, rr, it_total, passes = s
                 scale = jnp.sqrt(rr)
@@ -282,16 +280,9 @@ class DistributedKrylovIr(Solver):
         # Device-side ordering: the b-permutation and x-inverse-permutation
         # ride INSIDE the jitted program as sharded gathers (one per SOLVE
         # — on N>1 devices XLA inserts the one-time resharding collective,
-        # never in the iteration loop). Besides moving the permute off the
-        # host, this gather-wrapped nested-while program is exactly the
-        # shape for which XLA's memory-space assignment keeps the Pallas
-        # BSR blocks VMEM-RESIDENT across inner iterations — measured
-        # 22.8 vs 64.2 µs/iter on a 1-device mesh, i.e. the distributed
-        # per-iteration cost matches the single-chip flagship instead of
-        # sitting at the HBM roofline (DESIGN.md §3 "VMEM residency";
-        # pinned by test_dist_cg_ir_1dev_hw). The indices are runtime
-        # ARGUMENTS (not baked constants) so the identity ordering keeps
-        # the same program shape.
+        # never in the iteration loop), moving the permute off the host.
+        # The indices are runtime ARGUMENTS (not baked constants) so the
+        # identity ordering keeps the same program shape.
         shard = vec_shard
 
         @jax.jit
@@ -397,12 +388,10 @@ class DistributedGmresIr(DistributedKrylovIr):
 class DistributedKrylovIr2d(Solver):
     """fp64 semantics over the 2-D (rows × cols) partition: f32 inner
     Krylov on the all_gather-rows/psum_scatter-cols schedule
-    (parallel/dist2d.py) + once-per-pass double-float f64 residual, all
-    in one shard_map program — the very-large-matrix axis
-    (SURVEY.md §5 long-context row) at the reference's 1e-10 tolerance
-    (lsbench.c:140-141) and f32 per-iteration cost. Closes VERDICT r4
-    missing 3 (`--precision fp32_ir --mesh RxC` was rejected for
-    everything but multi-RHS block CG)."""
+    (parallel/dist2d.py) + once-per-pass f64 residual, all in one
+    shard_map program — the very-large-matrix axis (SURVEY.md §5
+    long-context row) at the reference's 1e-10 tolerance
+    (lsbench.c:140-141) and f32 per-iteration cost."""
 
     def __init__(self, A: CsrMatrix, mesh: Mesh, rtol=1e-10,
                  inner_rtol=1e-5, maxiter=None, max_refine=6,
@@ -423,10 +412,10 @@ class DistributedKrylovIr2d(Solver):
         self.max_refine = int(max_refine)
         self.n = A.nrows
 
-        (op32_args, op32_specs, mv32_local, self.local_spmv, plan,
-         vma32) = build_2d_matvec(A, mesh, jnp.float32, local_spmv)
-        (op64_args, op64_specs, mv64_local, _, plan64,
-         vma64) = build_2d_matvec(A, mesh, jnp.float64, self.local_spmv)
+        (op32_args, op32_specs, mv32_local, self.local_spmv,
+         plan) = build_2d_matvec(A, mesh, jnp.float32, local_spmv)
+        (op64_args, op64_specs, mv64_local, _,
+         plan64) = build_2d_matvec(A, mesh, jnp.float64, self.local_spmv)
         assert plan.n_pad == plan64.n_pad
         self.plan = plan
         self.n_pad = plan.n_pad
@@ -447,8 +436,7 @@ class DistributedKrylovIr2d(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*op32_specs, *op64_specs, P(both), P(both)),
-                 out_specs=(P(both), P(), P(), P(), P()),
-                 check_vma=vma32 and vma64)
+                 out_specs=(P(both), P(), P(), P(), P()))
         def _solve(*args):
             op32_l = tuple(args[:n32])
             op64_l = tuple(args[n32:-2])

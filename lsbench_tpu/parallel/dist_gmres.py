@@ -26,6 +26,8 @@ from lsbench_tpu.parallel.dist_spmv import build_dist_matvec
 from lsbench_tpu.parallel.mesh import ROWS, fetch_global
 from lsbench_tpu.solvers.base import SolveResult, Solver
 
+_HP = jax.lax.Precision.HIGHEST  # no TF32 for f32 Arnoldi products
+
 
 class DistributedGmres(Solver):
 
@@ -69,8 +71,7 @@ class DistributedGmres(Solver):
 
         @partial(shard_map, mesh=mesh,
                  in_specs=(*dm.op_specs, P(ROWS), P(ROWS)),
-                 out_specs=(P(ROWS), P(), P(), P()),
-                 check_vma=dm.check_vma)
+                 out_specs=(P(ROWS), P(), P(), P()))
         def _gmres(*args):
             *op_l, inv_diag_l, b_l = args
             nloc = b_l.shape[0]
@@ -99,10 +100,12 @@ class DistributedGmres(Solver):
                     V, H = carry
                     w = matvec(precond(V[j]))
                     mask = (jnp.arange(m + 1) <= j).astype(dt)
-                    h1 = jax.lax.psum(V @ w, ROWS) * mask
-                    w = w - V.T @ h1
-                    h2 = jax.lax.psum(V @ w, ROWS) * mask
-                    w = w - V.T @ h2
+                    h1 = jax.lax.psum(jnp.matmul(V, w, precision=_HP),
+                                      ROWS) * mask
+                    w = w - jnp.matmul(V.T, h1, precision=_HP)
+                    h2 = jax.lax.psum(jnp.matmul(V, w, precision=_HP),
+                                      ROWS) * mask
+                    w = w - jnp.matmul(V.T, h2, precision=_HP)
                     h = h1 + h2
                     hnext = jnp.sqrt(pdot(w, w))
                     V = V.at[j + 1].set(w / jnp.maximum(hnext, eps_break))
@@ -114,9 +117,10 @@ class DistributedGmres(Solver):
                 e1 = jnp.zeros(m + 1, dt).at[0].set(beta)
                 q, rr = jnp.linalg.qr(H, mode="reduced")
                 y = jax.scipy.linalg.solve_triangular(
-                    rr + eps_break * jnp.eye(m, dtype=dt), q.T @ e1,
+                    rr + eps_break * jnp.eye(m, dtype=dt),
+                    jnp.matmul(q.T, e1, precision=_HP),
                     lower=False)
-                return x_l + precond(V[:m].T @ y)
+                return x_l + precond(jnp.matmul(V[:m].T, y, precision=_HP))
 
             def cond(s):
                 x, rn, it = s

@@ -1,12 +1,12 @@
 """Halo-exchange distributed SpMV over a block-row partition.
 
 The reference has no working distributed path (SURVEY.md §2.2); this is the
-TPU-native design: each device owns a contiguous block of rows, and for a
+design here: each device owns a contiguous block of rows, and for a
 banded matrix (e.g. after RCM, ordering/rcm.py) the off-block columns its
 rows touch lie within a halo of width H of its block boundaries. Per SpMV:
 
-- two `ppermute`s move the H boundary entries of x to the left/right ring
-  neighbors over ICI (the neighbor-exchange pattern of ring attention),
+- two `ppermute`s move the H boundary entries of x to the left/right
+  neighbors (the neighbor-exchange pattern of ring attention),
 - the local (nloc + 2H)-wide extended vector feeds a purely local padded-row
   SpMV whose column ids were remapped to extended coordinates at setup.
 
@@ -135,96 +135,6 @@ def build_rect_halo_plan(M: CsrMatrix, n_devices: int, nloc_rows: int,
         needs_all_gather=needs_all_gather)
 
 
-@dataclass
-class HaloBsrPlan:
-    """Host-built plan for the Pallas BSR local SpMV inside shard_map.
-
-    Per-device BSR layouts (matrix/bsr.py) over the halo-extended local
-    coordinate system, padded to a common (G, S) shape across devices and
-    stacked on a leading device axis so they ride into shard_map as
-    row-sharded arrays. f32: `blocks_hi` only; f64 (double-float):
-    hi + lo == f64(A) to ~2⁻⁴⁸ (matrix/bsr.py::BsrDf64 role).
-    """
-    bcols: jax.Array              # (D, G*S) int32, flat block-column ids
-    blocks_hi: jax.Array          # (D, G, S*8, 128) f32
-    blocks_lo: jax.Array | None   # (D, G, S*8, 128) f32 (df64 path) or None
-    n: int
-    n_pad: int
-    nloc: int
-    halo: int
-    n_devices: int
-    n_ext: int                    # nloc + 2*halo (extended local width)
-    needs_all_gather: bool
-
-    @property
-    def bytes_streamed(self) -> int:
-        """HBM bytes read per full SpMV across all devices."""
-        sz = self.blocks_hi.size * 4
-        if self.blocks_lo is not None:
-            sz *= 2
-        return sz
-
-
-def build_halo_bsr_plan(A: CsrMatrix, n_devices: int, dtype=jnp.float32,
-                        row_align: int = 8) -> HaloBsrPlan:
-    """Build the stacked per-device BSR layout with halo-local columns.
-
-    Columns are renumbered to extended-local ids (global col − block start
-    + H) so each device's Pallas kernel reads only its (nloc + 2H)-wide
-    x table — the halo-local renumbering SURVEY.md §7.6 calls for.
-    """
-    from lsbench_tpu.matrix.bsr import BC, BsrMatrix
-
-    n = A.nrows
-    nloc = _round_up(-(-n // n_devices), max(row_align, 8))
-    n_pad = nloc * n_devices
-
-    r, c, v = A.to_coo()
-    dev = r // nloc
-    off = c - dev * nloc
-    reach_left = int(np.maximum(0, -off).max(initial=0))
-    reach_right = int(np.maximum(0, off - (nloc - 1)).max(initial=0))
-    H = _round_up(max(max(reach_left, reach_right), 1), 8)
-    if H > nloc:
-        return HaloBsrPlan(
-            bcols=jnp.zeros((n_devices, 1), jnp.int32),
-            blocks_hi=jnp.zeros((n_devices, 1, 8, BC), jnp.float32),
-            blocks_lo=None, n=n, n_pad=n_pad, nloc=nloc, halo=H,
-            n_devices=n_devices, n_ext=nloc + 2 * H, needs_all_gather=True)
-    n_ext = nloc + 2 * H
-
-    want_df64 = jnp.dtype(dtype) == jnp.dtype(jnp.float64)
-    locals_ = []
-    for d in range(n_devices):
-        m = dev == d
-        # f64 blocks; split into hi/lo after padding if df64 requested.
-        locals_.append(BsrMatrix.from_csr(
-            CsrMatrix.from_coo(r[m] - d * nloc, off[m] + H, v[m],
-                               nrows=nloc, ncols=n_ext),
-            dtype=jnp.float64))
-
-    G = max(bl.n_groups for bl in locals_)
-    S = max(bl.slots for bl in locals_)
-    D = n_devices
-    blocks64 = np.zeros((D, G, S * 8, BC), dtype=np.float64)
-    bcols = np.zeros((D, G, S), dtype=np.int32)
-    for d, bl in enumerate(locals_):
-        g, s = bl.n_groups, bl.slots
-        blk = np.asarray(bl.blocks).reshape(g, s, 8, BC)
-        blocks64[d, :g, : s * 8, :] = blk.reshape(g, s * 8, BC)
-        bcols[d, :g, :s] = np.asarray(bl.block_cols)
-
-    hi = blocks64.astype(np.float32)
-    lo = ((blocks64 - hi.astype(np.float64)).astype(np.float32)
-          if want_df64 else None)
-    return HaloBsrPlan(
-        bcols=jnp.asarray(bcols.reshape(D, G * S)),
-        blocks_hi=jnp.asarray(hi),
-        blocks_lo=None if lo is None else jnp.asarray(lo),
-        n=n, n_pad=n_pad, nloc=nloc, halo=H, n_devices=n_devices,
-        n_ext=n_ext, needs_all_gather=False)
-
-
 def fused_psum(*scalars, axis=ROWS):
     """One collective for all of an iteration's scalar reductions.
 
@@ -249,77 +159,12 @@ def _halo_exchange(x_l, H: int):
     return jnp.concatenate([left_halo, x_l, right_halo])
 
 
-def halo_spmv_bsr_local(halo: int, nloc: int, n_ext: int,
-                        bcols_l, blocks_l, x_l,
-                        interpret: bool | None = None):
-    """Inside shard_map: ppermute halo exchange + Pallas f32 BSR SpMV.
-
-    bcols_l: (1, G*S); blocks_l: (1, G, S*8, 128) — this device's shard of
-    the stacked plan arrays. x_l: (nloc,). Returns (nloc,) f32.
-    """
-    from lsbench_tpu.matrix.bsr import BC, BR
-    from lsbench_tpu.ops.spmv_pallas import _spmv_bsr_call
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    x_ext = _halo_exchange(x_l.astype(jnp.float32), halo)
-    n_cb = -(-n_ext // BC)
-    x_pad = jnp.zeros(n_cb * BC, jnp.float32).at[:n_ext].set(x_ext)
-    y = _spmv_bsr_call(bcols_l.reshape(-1), x_pad.reshape(n_cb, BC),
-                       blocks_l[0], br=BR, interpret=interpret)
-    return y.reshape(-1)[:nloc]
-
-
-def halo_spmm_bsr_local(halo: int, nloc: int, n_ext: int,
-                        bcols_l, blocks_l, X_l,
-                        interpret: bool | None = None):
-    """Inside shard_map: halo exchange of the RHS BLOCK + Pallas f32 BSR
-    SpMM (ops/spmv_pallas.py::_spmm_bsr_call — one MXU dot_general per
-    block slot). X_l: (nloc, k) → (nloc, k). The k RHS columns ride the
-    SAME streamed blocks as one SpMV, so effective nnz/s scales ~k× until
-    the MXU binds (the multi-RHS economics of SURVEY §6)."""
-    from lsbench_tpu.matrix.bsr import BC, BR
-    from lsbench_tpu.ops.spmv_pallas import _spmm_bsr_call
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    k = X_l.shape[1]
-    X_ext = _halo_exchange(X_l.astype(jnp.float32), halo)      # (n_ext, k)
-    n_cb = -(-n_ext // BC)
-    X_pad = jnp.zeros((n_cb * BC, k), jnp.float32).at[:n_ext].set(X_ext)
-    x_table = X_pad.reshape(n_cb, BC, k).transpose(0, 2, 1)
-    y = _spmm_bsr_call(bcols_l.reshape(-1), x_table, blocks_l[0],
-                       br=BR, interpret=interpret)
-    return y.reshape(-1, k)[:nloc]
-
-
 def halo_spmm_ell_local(halo: int, vals_l, cols_l, X_l):
     """Inside shard_map: halo exchange + jnp gather-ELL local SpMM
     (the any-dtype / CPU fallback). X_l: (nloc, k) → (nloc, k)."""
     X_ext = _halo_exchange(X_l, halo)
-    return jnp.einsum("ns,nsk->nk", vals_l, X_ext[cols_l])
-
-
-def halo_spmv_bsr_df64_local(halo: int, nloc: int, n_ext: int,
-                             bcols_l, blocks_hi_l, blocks_lo_l, x_l,
-                             interpret: bool | None = None):
-    """Inside shard_map: halo exchange + double-float Pallas SpMV (f64 in,
-    f64 out to ~2⁻⁴⁹ — the reference-precision distributed hot loop)."""
-    from lsbench_tpu.matrix.bsr import BC, BR
-    from lsbench_tpu.ops.spmv_pallas import _spmv_bsr_df64_call
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    x_ext = _halo_exchange(x_l.astype(jnp.float64), halo)
-    n_cb = -(-n_ext // BC)
-    x_pad = jnp.zeros(n_cb * BC, jnp.float64).at[:n_ext].set(x_ext)
-    xh = x_pad.astype(jnp.float32)
-    xl = (x_pad - xh.astype(jnp.float64)).astype(jnp.float32)
-    yh, yl = _spmv_bsr_df64_call(
-        bcols_l.reshape(-1), xh.reshape(n_cb, BC), xl.reshape(n_cb, BC),
-        blocks_hi_l[0], blocks_lo_l[0], br=BR, interpret=interpret)
-    y = yh.astype(jnp.float64) + yl.astype(jnp.float64)
-    return y.reshape(-1)[:nloc]
+    return jnp.einsum("ns,nsk->nk", vals_l, X_ext[cols_l],
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def force_global_cols(A: CsrMatrix, plan: HaloSpmvPlan) -> HaloSpmvPlan:
@@ -348,29 +193,25 @@ class DistMatvec:
     matvec: object          # callable (op_l: tuple, x_l) -> y_l
     matmat: object          # callable (op_l: tuple, X_l (nloc,k)) -> (nloc,k)
     strategy: str           # "halo" | "all_gather"
-    local_spmv: str         # "bsr" | "ell"
+    local_spmv: str         # "ell"
     halo: int
     nloc: int
     n_pad: int
     n: int
-    check_vma: bool         # False on the BSR path (pallas_call lacks VMA)
     plan: HaloSpmvPlan
-    bsr_plan: HaloBsrPlan | None
 
 
 def build_dist_matvec(A: CsrMatrix, mesh, dtype, strategy: str = "auto",
                       local_spmv: str = "auto",
                       row_align: int = 8) -> DistMatvec:
-    """Resolve (strategy, local_spmv) and build the sharded operator.
+    """Resolve the exchange strategy and build the sharded ELL operator.
 
-    local_spmv: "bsr" runs the flagship Pallas BSR kernel (f32, or
-    double-float for f64 — ops/spmv_pallas.py) inside shard_map after the
-    halo exchange; "ell" is the jnp gather path (any backend, the CPU
-    fallback). "auto": Pallas on TPU whenever the halo strategy holds
-    (the gather path costs ~20 ns/nnz on TPU — VERDICT r1 item 2).
+    local_spmv: the in-shard SpMV; "auto" and "ell" (the XLA gather
+    path) are the only values.
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    check_local_spmv(local_spmv)
     dtype = jnp.dtype(dtype)
     n_dev = mesh.devices.size
     plan = build_halo_plan(A, n_dev, dtype, row_align=row_align)
@@ -383,80 +224,40 @@ def build_dist_matvec(A: CsrMatrix, mesh, dtype, strategy: str = "auto",
     if strategy == "all_gather" and not plan.needs_all_gather:
         plan = force_global_cols(A, plan)
 
-    if local_spmv == "auto":
-        use_bsr = strategy == "halo" and jax.default_backend() == "tpu"
-    elif local_spmv == "bsr":
-        if strategy != "halo":
-            raise ValueError("local_spmv='bsr' requires the halo strategy "
-                             "(banded matrix; try RCM)")
-        use_bsr = True
-    elif local_spmv == "ell":
-        use_bsr = False
-    else:
-        raise ValueError(f"unknown local_spmv '{local_spmv}' "
-                         "(auto | bsr | ell)")
-
     row_shard = NamedSharding(mesh, P(ROWS, None))
-    bsr_plan = None
-    if use_bsr:
-        bsr_plan = build_halo_bsr_plan(A, n_dev, dtype, row_align=row_align)
-        blk_shard = NamedSharding(mesh, P(ROWS, None, None, None))
-        h, nl, ne = bsr_plan.halo, bsr_plan.nloc, bsr_plan.n_ext
-        if dtype == jnp.dtype(jnp.float64):
-            op_args = (jax.device_put(bsr_plan.bcols, row_shard),
-                       jax.device_put(bsr_plan.blocks_hi, blk_shard),
-                       jax.device_put(bsr_plan.blocks_lo, blk_shard))
-            op_specs = (P(ROWS, None), P(ROWS, None, None, None),
-                        P(ROWS, None, None, None))
+    op_args = (jax.device_put(plan.vals, row_shard),
+               jax.device_put(plan.cols, row_shard))
+    op_specs = (P(ROWS, None), P(ROWS, None))
+    if strategy == "halo":
+        H = plan.halo
 
-            def matvec(op_l, x_l):
-                return halo_spmv_bsr_df64_local(h, nl, ne, *op_l, x_l)
+        def matvec(op_l, x_l):
+            return halo_spmv_local(H, op_l[0], op_l[1], x_l)
 
-            def matmat(op_l, X_l):
-                # Per-column df64 SpMV: used only for the once-per-pass
-                # f64 residual in block solvers (k is small; the f32
-                # inner iteration carries the SpMM traffic).
-                cols = [matvec(op_l, X_l[:, j])
-                        for j in range(X_l.shape[1])]
-                return jnp.stack(cols, axis=1)
-        else:
-            op_args = (jax.device_put(bsr_plan.bcols, row_shard),
-                       jax.device_put(bsr_plan.blocks_hi, blk_shard))
-            op_specs = (P(ROWS, None), P(ROWS, None, None, None))
-
-            def matvec(op_l, x_l):
-                return halo_spmv_bsr_local(h, nl, ne, *op_l,
-                                           x_l).astype(dtype)
-
-            def matmat(op_l, X_l):
-                return halo_spmm_bsr_local(h, nl, ne, *op_l,
-                                           X_l).astype(dtype)
+        def matmat(op_l, X_l):
+            return halo_spmm_ell_local(H, op_l[0], op_l[1], X_l)
     else:
-        op_args = (jax.device_put(plan.vals, row_shard),
-                   jax.device_put(plan.cols, row_shard))
-        op_specs = (P(ROWS, None), P(ROWS, None))
-        if strategy == "halo":
-            H = plan.halo
+        def matvec(op_l, x_l):
+            full = jax.lax.all_gather(x_l, ROWS, tiled=True)
+            return jnp.sum(op_l[0] * full[op_l[1]], axis=1)
 
-            def matvec(op_l, x_l):
-                return halo_spmv_local(H, op_l[0], op_l[1], x_l)
-
-            def matmat(op_l, X_l):
-                return halo_spmm_ell_local(H, op_l[0], op_l[1], X_l)
-        else:
-            def matvec(op_l, x_l):
-                full = jax.lax.all_gather(x_l, ROWS, tiled=True)
-                return jnp.sum(op_l[0] * full[op_l[1]], axis=1)
-
-            def matmat(op_l, X_l):
-                full = jax.lax.all_gather(X_l, ROWS, tiled=True)
-                return jnp.einsum("ns,nsk->nk", op_l[0], full[op_l[1]])
+        def matmat(op_l, X_l):
+            full = jax.lax.all_gather(X_l, ROWS, tiled=True)
+            return jnp.einsum("ns,nsk->nk", op_l[0], full[op_l[1]],
+                              precision=jax.lax.Precision.HIGHEST)
 
     return DistMatvec(
         op_args=op_args, op_specs=op_specs, matvec=matvec, matmat=matmat,
-        strategy=strategy, local_spmv="bsr" if use_bsr else "ell",
+        strategy=strategy, local_spmv="ell",
         halo=plan.halo, nloc=plan.nloc, n_pad=plan.n_pad, n=plan.n,
-        check_vma=not use_bsr, plan=plan, bsr_plan=bsr_plan)
+        plan=plan)
+
+
+def check_local_spmv(local_spmv: str) -> None:
+    """Reject in-shard SpMV names other than the ELL gather path."""
+    if local_spmv not in ("auto", "ell"):
+        raise ValueError(f"unknown local_spmv '{local_spmv}' (auto | ell; "
+                         "the block-sparse local kernels were removed)")
 
 
 def halo_spmv_local(plan_halo: int, vals_l, cols_l, x_l):

@@ -37,39 +37,27 @@ def run_dryrun(n_devices: int) -> None:
     r2 = np.linalg.norm(b - A.matvec(x2)) / np.linalg.norm(b)
     assert res2.converged and r2 < 1e-8, (res2.iters, res2.relres, r2)
 
-    # Pallas-BSR local SpMV inside shard_map (interpret mode off-TPU —
-    # same plan build, halo renumbering, and shard_map plumbing as ICI).
-    # dtype=f64 exercises the double-float BSR shard path.
-    bsr_cg = DistributedCg(A, mesh, dtype=jnp.float64, rtol=1e-10,
-                           local_spmv="bsr")
-    res_b = bsr_cg.solve(b)
-    xb = np.asarray(res_b.x)
-    rb = np.linalg.norm(b - A.matvec(xb)) / np.linalg.norm(b)
-    assert res_b.converged and rb < 1e-8, (res_b.iters, res_b.relres, rb)
-
-    # Distributed GMRES + BiCGSTAB, both on the Pallas-BSR local SpMV.
+    # Distributed GMRES + BiCGSTAB.
     from lsbench_tpu.parallel.dist_bicgstab import DistributedBicgstab
     from lsbench_tpu.parallel.dist_gmres import DistributedGmres
     res_g = DistributedGmres(A, mesh, dtype=jnp.float64, rtol=1e-8,
-                             restart=20, local_spmv="bsr").solve(b)
+                             restart=20).solve(b)
     xg = np.asarray(res_g.x)
     rg = np.linalg.norm(b - A.matvec(xg)) / np.linalg.norm(b)
     assert res_g.converged and rg < 1e-6, (res_g.iters, res_g.relres, rg)
-    res_s = DistributedBicgstab(A, mesh, dtype=jnp.float64, rtol=1e-6,
-                                local_spmv="bsr").solve(b)
+    res_s = DistributedBicgstab(A, mesh, dtype=jnp.float64,
+                                rtol=1e-6).solve(b)
     xs = np.asarray(res_s.x)
     rs = np.linalg.norm(b - A.matvec(xs)) / np.linalg.norm(b)
     assert res_s.converged and rs < 1e-4, (res_s.iters, res_s.relres, rs)
 
-    # Standalone DistributedAmg fixed-cycle (hypre maxiter=2 protocol),
-    # fine-level Pallas BSR matvec.
+    # Standalone DistributedAmg fixed-cycle (hypre maxiter=2 protocol).
     from lsbench_tpu.parallel.dist_amg import DistributedAmg
     amg_fixed = DistributedAmg(A, mesh, dtype=jnp.float64, cycles=2,
-                               coarse_n=16, max_levels=3, local_spmv="bsr")
+                               coarse_n=16, max_levels=3)
     res_f = amg_fixed.solve(b)
     assert res_f.iters == 2 and np.isfinite(res_f.relres), (
         res_f.iters, res_f.relres)
-    assert amg_fixed.local_spmv == "bsr"
 
     # Distributed K-cycle (the parAlmond protocol over the mesh — FCG
     # coarse correction with fused psums per level, round 5).
@@ -79,34 +67,28 @@ def run_dryrun(n_devices: int) -> None:
     assert res_k1.iters == 1 and np.isfinite(res_k1.relres), (
         res_k1.iters, res_k1.relres)
 
-    # Distributed mixed-precision CG (f32 inner + df64 refinement — the
-    # production fp64 mode over a mesh) on the Pallas-BSR local SpMV.
+    # Distributed mixed-precision CG (f32 inner + f64 refinement).
     from lsbench_tpu.parallel.dist_cg_ir import DistributedCgIr
-    res_ir = DistributedCgIr(A, mesh, rtol=1e-8, local_spmv="bsr").solve(b)
+    res_ir = DistributedCgIr(A, mesh, rtol=1e-8).solve(b)
     xir = np.asarray(res_ir.x)
     rir = np.linalg.norm(b - A.matvec(xir)) / np.linalg.norm(b)
-    # Interpret-mode df64 loses precision under the forced-host-device
-    # XLA flag (see tests/test_dist_cg_ir.py) — gate at the simulator-
-    # achievable level; hardware asserts 1e-10 (tests/test_tpu_hw.py).
-    assert rir < 1e-5, (res_ir.iters, res_ir.relres, rir)
+    assert rir < 1e-7, (res_ir.iters, res_ir.relres, rir)
 
-    # Distributed mixed-precision BiCGSTAB + GMRES (f32 inner + df64
+    # Distributed mixed-precision BiCGSTAB + GMRES (f32 inner + f64
     # refinement): the ginkgo-role and gmres-role fp32_ir routes.
     from lsbench_tpu.parallel.dist_cg_ir import (DistributedBicgstabIr,
                                                  DistributedGmresIr)
-    res_bir = DistributedBicgstabIr(A, mesh, rtol=1e-8,
-                                    local_spmv="bsr").solve(b)
+    res_bir = DistributedBicgstabIr(A, mesh, rtol=1e-8).solve(b)
     rbir = (np.linalg.norm(b - A.matvec(np.asarray(res_bir.x)))
             / np.linalg.norm(b))
-    assert rbir < 1e-5, (res_bir.iters, res_bir.relres, rbir)
-    res_gir = DistributedGmresIr(A, mesh, rtol=1e-8, restart=20,
-                                 local_spmv="bsr").solve(b)
+    assert rbir < 1e-7, (res_bir.iters, res_bir.relres, rbir)
+    res_gir = DistributedGmresIr(A, mesh, rtol=1e-8, restart=20).solve(b)
     rgir = (np.linalg.norm(b - A.matvec(np.asarray(res_gir.x)))
             / np.linalg.norm(b))
-    assert rgir < 1e-5, (res_gir.iters, res_gir.relres, rgir)
+    assert rgir < 1e-7, (res_gir.iters, res_gir.relres, rgir)
 
     # Distributed multi-RHS: k RHS through one halo exchange + one
-    # streamed block pass per iteration (--nrhs x --devices composing).
+    # matrix pass per iteration (--nrhs x --devices composing).
     from lsbench_tpu.parallel.dist_block_cg import DistributedBlockCg
     k = 3
     rng = np.random.default_rng(0)
@@ -119,15 +101,14 @@ def run_dryrun(n_devices: int) -> None:
               / np.linalg.norm(B[:, j]))
         assert rk < 1e-4, (j, res_k.iters, rk)
 
-    # 2-D block partition (all_gather over rows + psum_scatter over cols),
-    # on the Pallas-BSR local SpMV (interpret mode off-TPU).
+    # 2-D block partition (all_gather over rows + psum_scatter over cols).
     if n_devices % 2 == 0 and n_devices >= 4:
         from lsbench_tpu.parallel.dist2d import (DistributedBlockCg2d,
                                                  DistributedCg2d)
         from lsbench_tpu.parallel.mesh import make_mesh_2d
         mesh2 = make_mesh_2d(2, n_devices // 2)
-        res3 = DistributedCg2d(A, mesh2, dtype=jnp.float64, rtol=1e-10,
-                               local_spmv="bsr").solve(b)
+        res3 = DistributedCg2d(A, mesh2, dtype=jnp.float64,
+                               rtol=1e-10).solve(b)
         x3 = np.asarray(res3.x)
         r3 = np.linalg.norm(b - A.matvec(x3)) / np.linalg.norm(b)
         assert res3.converged and r3 < 1e-8, (res3.iters, res3.relres, r3)
@@ -142,14 +123,12 @@ def run_dryrun(n_devices: int) -> None:
         assert res4.converged and r4 < 1e-7, (res4.iters, res4.relres, r4)
 
         # 2-D mixed-precision CG-IR (f32 inner on the 2-D schedule +
-        # df64 per-pass residual — `--precision fp32_ir --mesh RxC`,
-        # VERDICT r4 missing 3).
+        # f64 per-pass residual — `--precision fp32_ir --mesh RxC`).
         from lsbench_tpu.parallel.dist_cg_ir import DistributedCgIr2d
-        res6 = DistributedCgIr2d(A, mesh2, rtol=1e-8,
-                                 local_spmv="bsr").solve(b)
+        res6 = DistributedCgIr2d(A, mesh2, rtol=1e-8).solve(b)
         r6 = (np.linalg.norm(b - A.matvec(np.asarray(res6.x)))
               / np.linalg.norm(b))
-        assert r6 < 1e-5, (res6.iters, res6.relres, r6)
+        assert r6 < 1e-7, (res6.iters, res6.relres, r6)
 
         # 2-D multi-RHS block CG (--nrhs k x --mesh RxC composition).
         rng2 = np.random.default_rng(1)

@@ -2,9 +2,9 @@
 
 The reference has no working distributed path (its MPI is split into
 self-communicators, paralmond.cpp:94-102, and every backend pins one GPU —
-SURVEY.md §2.2). The TPU-native replacement: a 1-D `jax.sharding.Mesh` over
-the "rows" axis; matrices are block-row partitioned and vectors row-sharded,
-with XLA collectives over ICI standing in for MPI.
+SURVEY.md §2.2). The replacement here: a 1-D `jax.sharding.Mesh` over the
+"rows" axis; matrices are block-row partitioned and vectors row-sharded,
+with XLA collectives (NCCL on GPUs) standing in for MPI.
 """
 
 from __future__ import annotations
@@ -23,12 +23,11 @@ def init_distributed(coordinator: str, num_processes: int | None = None,
     """Multi-host seam — the `jax.distributed.initialize` path that
     replaces the reference's vestigial MPI (SURVEY.md §2.2).
 
-    `coordinator` is "host:port" of process 0. On TPU pods,
-    num_processes/process_id are discovered from the environment; on
-    CPU/GPU fleets pass them explicitly. After this, `jax.devices()`
-    returns the GLOBAL device list, so `make_row_mesh`/`make_mesh_2d`
-    build pod-wide meshes unchanged — shardings lay collectives on ICI
-    within a slice and DCN across slices automatically.
+    `coordinator` is "host:port" of process 0; pass num_processes and
+    process_id explicitly, or neither where the cluster environment
+    provides them. After this, `jax.devices()` returns the GLOBAL device
+    list, so `make_row_mesh`/`make_mesh_2d` build multi-host meshes
+    unchanged.
 
     Returns this process's id. Idempotent per process.
     """
@@ -38,7 +37,7 @@ def init_distributed(coordinator: str, num_processes: int | None = None,
             f"coordinator must be 'host:port', got '{coordinator}'")
     if (num_processes is None) != (process_id is None):
         raise ValueError("pass both num_processes and process_id, or "
-                         "neither (TPU-pod autodetection)")
+                         "neither (cluster autodetection)")
     if num_processes is not None and not (0 <= process_id < num_processes):
         raise ValueError(
             f"process_id {process_id} out of range [0, {num_processes})")

@@ -3,9 +3,8 @@
 The reference permutes the matrix (and RHS) on host before the device
 solve (cusparse.c:66-96, ordering + csrperm + RHS permute) and
 un-permutes the solution after (cusparse.c:203-204). The distributed
-solvers do the same: an RCM/AMD ordering densifies the block band, which
-both shrinks the halo width (fewer ppermute bytes) and densifies the
-Pallas BSR blocks (fewer 8x128 tiles streamed per SpMV).
+solvers do the same: an RCM/AMD ordering narrows the band, which shrinks
+the halo width (fewer ppermute bytes).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ register_alias("cusolver", "cholesky", refactor_each_solve=True)
 # M-matrices; tj7a/xn3b are SEM-type with 32% positive off-diagonal
 # mass): θ=0.5, direct interpolation improved by 3 damped (ω=0.5) Jacobi
 # passes toward the ideal -A_FF⁻¹A_FC truncated to 8/row (per-cycle
-# factors 0.15-0.33 on all 7 reference matrices — RESULTS.md §1; true
+# factors 0.15-0.33 on all 7 reference matrices; true
 # ext+i is implemented too and loses here), Chebyshev degree 3, V(2,2).
 # The hypre-faithful recipe (hypre.c:126-188) is one --opt line away and
 # is TESTED as such (tests/test_amg.py::test_hypre_faithful_preset):

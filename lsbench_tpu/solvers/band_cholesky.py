@@ -1,33 +1,32 @@
-"""Device-side blocked band Cholesky — the MXU numeric-factorization path.
+"""Device-side blocked band Cholesky — dense-panel numeric factorization.
 
 The reference's default backend factors on the host CPU (CHOLMOD,
 cholmod.c:68; supernodal dense frontal matrices, cholmod-impl.h:26).
-SURVEY.md §7.4 calls for the TPU equivalent: dense panel factorization on
-the MXU. The TPU-native shape of that idea is a *blocked band* factor:
+SURVEY.md §7.4 calls for the device equivalent: dense panel factorization.
+Its shape here is a *blocked band* factor:
 
 - RCM ordering (ordering/rcm.py) concentrates the matrix inside a band of
   half-width w; Cholesky fill of a banded SPD matrix stays inside the band,
   so the band IS the supernodal structure — one dense panel per block step,
   no symbolic phase at all.
 - The factorization is a `lax.scan` over n/nb pivot-block steps carrying a
-  dense (w+nb)×(w+nb) working window W. Per step, on the MXU:
+  dense (w+nb)×(w+nb) working window W. Per step:
       Ld = chol(W[:nb,:nb])            nb×nb dense Cholesky
       Lp = W[nb:,:nb] · Ld⁻ᵀ           w×nb triangular solve
       T  = W[nb:,nb:] − Lp·Lpᵀ          w×w SYRK (the trailing update)
   then the window shifts by nb rows and the next band slab streams in.
   Static shapes, no data-dependent control flow — XLA-friendly by
-  construction, and every flop is a dense MXU op.
+  construction, and every flop is a dense matrix op.
 - Solves are blocked band substitutions: a scan carrying the last w
   entries of x, one nb×nb triangular solve + one w×nb matvec per step.
 
 Cost: n/nb steps × O((w+nb)²·nb) flops = O(n·(w+nb)²) — the classic band
 factor cost, all on device. For the reference workload (RCM widths 200–600
 at n=3.5k–6.4k) and 2-D-Poisson-type matrices (w ≈ √n), this factors
-n≈50k entirely on the MXU.
+n≈50k entirely on the device.
 
-f64 protocol: factor in f32 on device + double-float-residual iterative
-refinement (the CholeskyIrSolver pattern) — fp64-accurate results at f32
-MXU speed.
+f64 protocol: factor in f32 on device + f64-residual iterative
+refinement (the CholeskyIrSolver pattern).
 """
 
 from __future__ import annotations
@@ -171,9 +170,9 @@ def solve_band(Ld, Lp, b_pad, *, nb: int):
 @register_solver("cholesky_band")
 class BandCholeskySolver(Solver):
     """RCM-banded blocked Cholesky with the numeric factor ON DEVICE
-    (MXU panels) — the scalable CHOLMOD-role direct solver for banded
-    workloads (SURVEY.md §7.4). f32 factor + double-float iterative
-    refinement reaches the reference 1e-10 tolerance (cusparse.c:184)."""
+    (dense panels) — the CHOLMOD-role direct solver for banded workloads
+    (SURVEY.md §7.4). f32 factor + f64 iterative refinement reaches the
+    reference 1e-10 tolerance (cusparse.c:184)."""
 
     def __init__(self, A: CsrMatrix, dtype=jnp.float64, ordering="rcm",
                  rtol=1e-10, max_refine=12, nb: int = 128,
@@ -215,7 +214,7 @@ class BandCholeskySolver(Solver):
         self.bandwidth = w
         self.setup_breakdown["layout_s"] = _time.perf_counter() - _t0
 
-        # Device factor in f32 (MXU); jitted so the scan compiles once.
+        # Device factor in f32; jitted so the scan compiles once.
         _t0 = _time.perf_counter()
         f32 = jnp.float32
         Ld, Lp = jax.jit(lambda W, S: factor_band(W, S, nb=self.nb))(
@@ -224,17 +223,10 @@ class BandCholeskySolver(Solver):
         self.setup_breakdown["factor_s"] = _time.perf_counter() - _t0
         self._fac = BandFactor(Ld, Lp, n, self.nb, w, n_pad)
 
-        # f64 residual operator (double-float Pallas on TPU, ELL off-TPU).
-        if jax.default_backend() == "tpu":
-            from lsbench_tpu.matrix.bsr import BsrDf64
-            from lsbench_tpu.ops.spmv_pallas import spmv_bsr_df64
-            self._op64 = BsrDf64.from_csr(Ap)
-            mv64 = spmv_bsr_df64
-        else:
-            from lsbench_tpu.matrix.ell import EllMatrix
-            from lsbench_tpu.ops.spmv import spmv_ell
-            self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
-            mv64 = spmv_ell
+        # f64 residual operator.
+        from lsbench_tpu.matrix.ell import EllMatrix
+        from lsbench_tpu.ops.spmv import spmv_ell
+        self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
 
         rtol_c, max_refine_c = self.rtol, self.max_refine
         nb_c, n_c = self.nb, n
@@ -264,7 +256,7 @@ class BandCholeskySolver(Solver):
                 r32 = r.astype(jnp.float32) * (1.0 / safe).astype(jnp.float32)
                 d32 = band_solve32(r32)
                 x = x + (d32 * safe.astype(jnp.float32)).astype(jnp.float64)
-                r_new = bp - mv64(op64, x)
+                r_new = bp - spmv_ell(op64, x)
                 return (x, r_new, jnp.vdot(r_new, r_new), rr, passes + 1)
 
             x0 = jnp.zeros_like(bp)

@@ -5,12 +5,11 @@ The reference's Ginkgo backend is single-RHS BiCGSTAB + Jacobi
 recurrences, so unlike block CG (a shared Krylov subspace, block_cg.py)
 the natural multi-RHS form is BATCHED: each column carries its own
 scalars (ρ, α, ω) as (k,) vectors while every matvec becomes ONE SpMM
-riding the same streamed blocks — the k columns amortize the operator
-traffic exactly as RESULTS §5 measures for block CG (3-5× cheaper per
-solution at k=8).
+over the same matrix stream, so the k columns amortize the operator
+traffic.
 
 Structure mirrors BlockCgSolver (block_cg.py): f32 batched inner loop +
-once-per-pass double-float f64 residual, per-column convergence masks
+once-per-pass f64 residual, per-column convergence masks
 (a finished column freezes — the loop's OR-condition keeps running for
 the others), worst-column reporting.
 """
@@ -96,7 +95,7 @@ def batched_bicgstab_loop(matmat, pc_cols, B, rtol, maxiter, dtype):
 
 @register_solver("batched_bicgstab")
 class BatchedBicgstabSolver(Solver):
-    """f32 batched BiCGSTAB inner + df64 residual refinement per column
+    """f32 batched BiCGSTAB inner + f64 residual refinement per column
     (the `--solver bicgstab/ginkgo --nrhs k` route). solve(B) takes
     (n, k); reporting is worst-column, like block_cg."""
 
@@ -105,7 +104,7 @@ class BatchedBicgstabSolver(Solver):
                  layout="auto", ordering="none", dtype=None,
                  precond_params=None, **params):
         super().__init__(A, **params)
-        del dtype, layout  # fixed structure: f32 SpMM inner / df64 outer
+        del dtype, layout  # fixed structure: f32 SpMM inner / f64 outer
         self.rtol = float(rtol)
         self.inner_rtol = float(min(inner_rtol, self.rtol * 0.1))
         self.maxiter = (int(maxiter) if maxiter is not None
@@ -124,33 +123,12 @@ class BatchedBicgstabSolver(Solver):
         self._inv = None if identity else jnp.asarray(inv)
 
         _t0 = _time.perf_counter()
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            from lsbench_tpu.matrix.bsr import BsrDf64, BsrMatrix
-            from lsbench_tpu.ops.spmv_pallas import (spmm_bsr,
-                                                     spmv_bsr_df64,
-                                                     spmv_bsr_df64_lo)
-            self._op = BsrMatrix.from_csr(Ap)
-            op64_full = BsrDf64.from_csr(Ap)
-            if (self._op.br == op64_full.br
-                    and self._op.blocks.shape == op64_full.blocks_hi.shape
-                    and np.array_equal(np.asarray(self._op.block_cols),
-                                       np.asarray(op64_full.block_cols))):
-                self._op64 = op64_full.blocks_lo
-                mv64, mv64_lo = None, spmv_bsr_df64_lo
-            else:
-                self._op64 = op64_full
-                mv64, mv64_lo = spmv_bsr_df64, None
-            self.stream_bytes = self._op.bytes_streamed
-            mm32 = spmm_bsr
-        else:
-            from lsbench_tpu.matrix.ell import EllMatrix
-            from lsbench_tpu.ops.spmv import spmv_ell
-            self._op = EllMatrix.from_csr(Ap, dtype=jnp.float32)
-            self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
-            self.stream_bytes = None
-            mm32 = jax.vmap(spmv_ell, in_axes=(None, 1), out_axes=1)
-            mv64, mv64_lo = spmv_ell, None
+        from lsbench_tpu.matrix.ell import EllMatrix
+        from lsbench_tpu.ops.spmv import spmv_ell
+        self._op = EllMatrix.from_csr(Ap, dtype=jnp.float32)
+        self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
+        self.stream_bytes = None
+        ell_mm = jax.vmap(spmv_ell, in_axes=(None, 1), out_axes=1)
         self.setup_breakdown["layout_s"] = _time.perf_counter() - _t0
 
         from lsbench_tpu.solvers.preconditioners import get_preconditioner
@@ -165,20 +143,12 @@ class BatchedBicgstabSolver(Solver):
         def _solve(op, op64, pstate, B):
             B = B.astype(jnp.float64)
             Bp = B if perm_dev is None else B[perm_dev]
-            k = Bp.shape[1]
             bnorm2 = _cdots(Bp, Bp)
             tol2 = (rtol_c ** 2) * bnorm2
 
-            mm = lambda V: mm32(op, V).astype(jnp.float32)
+            mm = lambda V: ell_mm(op, V)
             pc_cols = jax.vmap(lambda r: papply(pstate, r),
                                in_axes=1, out_axes=1)
-
-            def mm64(Xc):
-                if mv64 is None:
-                    cols = [mv64_lo(op, op64, Xc[:, j]) for j in range(k)]
-                else:
-                    cols = [mv64(op64, Xc[:, j]) for j in range(k)]
-                return jnp.stack(cols, axis=1)
 
             def refine_cond(s):
                 X, R, rr, it_total, passes = s
@@ -197,7 +167,7 @@ class BatchedBicgstabSolver(Solver):
                 D32 = jnp.where(jnp.isfinite(D32), D32, 0.0)
                 X = X + (D32 * safe.astype(jnp.float32)[None, :]
                          ).astype(jnp.float64)
-                R_new = Bp - mm64(X)
+                R_new = Bp - ell_mm(op64, X)
                 return (X, R_new, _cdots(R_new, R_new),
                         it_total + inner_iters, passes + 1)
 

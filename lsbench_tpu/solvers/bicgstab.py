@@ -7,7 +7,7 @@ flag (ginkgo.cpp:103-108). This native version keeps those semantics
 (stop uses the recurrence residual ‖r‖, baseline = initial residual) and
 handles nonsymmetric systems, which CG does not.
 
-Same TPU design as CG: whole solve in one jit, `lax.while_loop`, layout
+Same design as CG: whole solve in one jit, `lax.while_loop`, layout
 and ordering shared via cg.build_matvec.
 """
 
@@ -100,26 +100,6 @@ class BicgstabSolver(Solver):
         self.rtol = float(rtol)
         self.maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
 
-        self._delegate = None
-        if (jax.default_backend() == "tpu"
-                and self.dtype == jnp.dtype(jnp.float64)):
-            # Emulated-f64 vector recurrences on TPU are orders of
-            # magnitude off f32 speed. Delegate to f32 BiCGSTAB + double-
-            # float residual refinement (refine.py); the outer loop stops
-            # on the TRUE f64 residual ≤ rtol·‖b‖ — a strictly stronger
-            # criterion than Ginkgo's implicit resnorm (ginkgo.cpp:59-62).
-            import sys
-            print("bicgstab: fp64 on TPU executes as f32 BiCGSTAB + "
-                  "double-float iterative refinement (mode fp32_ir_auto).",
-                  file=sys.stderr)
-            from lsbench_tpu.solvers.refine import BicgstabIrSolver
-            self._delegate = BicgstabIrSolver(
-                A, rtol=self.rtol, maxiter=self.maxiter,
-                inner_rtol=min(1e-5, self.rtol * 0.1),
-                precond=precond, layout=layout, ordering=ordering, **params)
-            self.setup_breakdown = self._delegate.setup_breakdown
-            return
-
         self.layout = resolve_layout(layout, self.dtype)
 
         from lsbench_tpu.ordering import get_ordering
@@ -134,11 +114,10 @@ class BicgstabSolver(Solver):
         apply_mv, self._op, self.stream_bytes = build_matvec(
             Ap, self.dtype, self.layout)
         self._mv = lambda v: apply_mv(self._op, v)
-        pdtype = jnp.float32 if self.layout == "bsr" else self.dtype
-        self._pstate, papply = get_preconditioner(precond)(Ap, pdtype)
+        self._pstate, papply = get_preconditioner(precond)(Ap, self.dtype)
 
         rtol_c, maxiter_c = self.rtol, self.maxiter
-        dt = jnp.float32 if self.layout == "bsr" else self.dtype
+        dt = self.dtype
 
         @jax.jit
         def _solve(op, pstate, b):
@@ -154,10 +133,6 @@ class BicgstabSolver(Solver):
         self._jit_solve = _solve
 
     def solve(self, b) -> SolveResult:
-        if self._delegate is not None:
-            res = self._delegate.solve(b)
-            res.extra["precision_mode"] = "fp32_ir_auto"
-            return res
         x, iters, rnorm, r0norm = self._jit_solve(self._op, self._pstate,
                                                   jnp.asarray(b))
         rnorm, r0norm = float(rnorm), float(r0norm)
@@ -166,17 +141,5 @@ class BicgstabSolver(Solver):
                            converged=relres <= self.rtol or r0norm == 0.0)
 
     def solve_fn(self):
-        if self._delegate is not None:
-            return self._delegate.solve_fn()
         op, pstate, jit_solve = self._op, self._pstate, self._jit_solve
         return lambda b: jit_solve(op, pstate, b)[0]
-
-    def solve_fn_args(self):
-        if self._delegate is not None:
-            return self._delegate.solve_fn_args()
-        return super().solve_fn_args()
-
-    def matvec_op(self):
-        if self._delegate is not None:
-            return self._delegate.matvec_op()
-        return super().matvec_op()

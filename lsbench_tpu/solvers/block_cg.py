@@ -1,11 +1,9 @@
 """Multi-RHS (block) CG: solve A X = B for k right-hand sides at once.
 
-TPU-native extension beyond the reference (every lsbench backend is
-single-RHS — lsbench.c:158-160 builds one r): on TPU the SpMV is
-HBM-bandwidth-bound on the streamed BSR blocks, so batching k RHS into
-one SpMM (ops/spmv_pallas.py::spmm_bsr, an MXU dot_general per slot)
-does k× the numerical work for the SAME block traffic — effective nnz/s
-scales ~k× until the MXU becomes the bound.
+An extension beyond the reference (every lsbench backend is single-RHS —
+lsbench.c:158-160 builds one r): the SpMV is bandwidth-bound on the
+matrix stream, so batching k RHS into one SpMM does k× the numerical work
+for the same matrix traffic.
 
 Two inner iterations are provided:
 
@@ -17,7 +15,7 @@ Two inner iterations are provided:
   the numerically stable form — plain O'Leary block CG breaks down in
   f32 when direction columns become linearly dependent. Orthonormal-
   ization is two-pass CholQR (two k×k Gram matmuls + triangular
-  solves — MXU-shaped, no Householder loops), with a trace-scaled
+  solves — GEMM-shaped, no Householder loops), with a trace-scaled
   diagonal shift so rank collapse (converged/parallel columns) yields
   fresh orthonormal directions instead of NaNs — the breakdown-free
   behavior. Preconditioning is split Jacobi (A → S·A·S with
@@ -30,10 +28,8 @@ Two inner iterations are provided:
   fallback for non-diagonal preconditioners, where split
   preconditioning is unavailable.
 
-Precision follows the library's flagship structure (solvers/refine.py):
-f32 inner block-CG + double-float f64 residual refinement per column,
-reaching the reference's direct tolerance 1e-10 without emulated-f64
-vector work.
+Precision follows solvers/refine.py: f32 inner block-CG + f64 residual
+refinement per column, reaching the reference's direct tolerance 1e-10.
 """
 
 from __future__ import annotations
@@ -50,14 +46,14 @@ from lsbench_tpu.solvers.base import SolveResult, Solver, register_solver
 
 def _cdots(u, v):
     """Per-column dot products: (n,k),(n,k) -> (k,)."""
-    return jnp.einsum("nk,nk->k", u, v)
+    return jnp.einsum("nk,nk->k", u, v, precision=jax.lax.Precision.HIGHEST)
 
 
 def _cholqr2(Y, eps_rel=1e-6):
     """Two-pass CholQR: Y = Q @ C with Q ~orthonormal (f32-stable).
 
     One pass is a k×k Gram matmul + Cholesky + triangular solve (all
-    MXU/small ops — no Householder column loop, which XLA serializes);
+    small dense ops — no Householder column loop, which XLA serializes);
     the second pass squares away the first's rounding so Q is orthonormal
     to f32 eps even when cond(Y) ~ 1e3. The trace-scaled shift keeps the
     Cholesky alive under rank collapse (a converged column's residual
@@ -118,11 +114,10 @@ def block_cg_shared_loop(matmat, ihalf, B, rtol, maxiter, dtype,
     split-preconditioned residual, which the caller's outer f64
     refinement re-checks in the true norm.
 
-    Every matmul here traces under HIGHEST precision: the TPU MXU's
-    default bf16 operand rounding corrupts the Gram products /
-    orthonormalization enough to triple the iteration count (measured
-    748 vs ~270 block iters on xn3b_A_10 k=8) — the same hardware trap
-    the SpMM kernel hit in round 2.
+    Every matmul here traces under HIGHEST precision: an f32 product
+    that runs in TF32 (about three decimal digits) corrupts the Gram
+    products and the orthonormalization enough to multiply the iteration
+    count.
     """
     B = B.astype(dtype)
     ihalf = ihalf.astype(dtype)
@@ -214,7 +209,7 @@ def block_cg_loop(matmat, pc_cols, B, rtol, maxiter, dtype):
 
 @register_solver("block_cg")
 class BlockCgSolver(Solver):
-    """Simultaneous-column PCG with f32 SpMM inner + df64 residual outer.
+    """Block PCG with f32 SpMM inner + f64 residual outer.
 
     solve(B) takes B of shape (n, k) (a 1-D b is treated as k=1). The
     reported relres/converged are over the worst column.
@@ -226,7 +221,7 @@ class BlockCgSolver(Solver):
                  precond_params=None, method="shared", qr="householder",
                  **params):
         super().__init__(A, **params)
-        del dtype, layout  # fixed structure: f32 SpMM inner / df64 outer
+        del dtype, layout  # fixed structure: f32 SpMM inner / f64 outer
         self.rtol = float(rtol)
         self.inner_rtol = float(inner_rtol)
         self.maxiter = (int(maxiter) if maxiter is not None
@@ -257,41 +252,12 @@ class BlockCgSolver(Solver):
         self._inv = None if identity else jnp.asarray(inv)
 
         _t0 = _time.perf_counter()
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            from lsbench_tpu.matrix.bsr import BsrDf64, BsrMatrix
-            from lsbench_tpu.ops.spmv_pallas import (spmm_bsr, spmv_bsr_df64,
-                                                     spmv_bsr_df64_lo)
-            self._op = BsrMatrix.from_csr(Ap)
-            op64_full = BsrDf64.from_csr(Ap)
-            if (self._op.br == op64_full.br
-                    and self._op.blocks.shape == op64_full.blocks_hi.shape
-                    and np.array_equal(np.asarray(self._op.block_cols),
-                                       np.asarray(op64_full.block_cols))):
-                # df64 hi blocks are bit-identical to self._op.blocks; ship
-                # only the LO compensation array (refine.py's sharing — one
-                # fewer ~nnz operand staged per dispatch, less VMEM
-                # pressure). Guarded on layout alignment like refine.py: a
-                # BsrMatrix with a different block size or slot ordering
-                # must NOT alias hi blocks it doesn't match.
-                self._op64 = op64_full.blocks_lo
-                mv64 = None
-                mv64_lo = spmv_bsr_df64_lo
-            else:
-                self._op64 = op64_full
-                mv64 = spmv_bsr_df64
-                mv64_lo = None
-            self.stream_bytes = self._op.bytes_streamed
-            mm32 = spmm_bsr
-        else:
-            from lsbench_tpu.matrix.ell import EllMatrix
-            from lsbench_tpu.ops.spmv import spmv_ell
-            self._op = EllMatrix.from_csr(Ap, dtype=jnp.float32)
-            self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
-            self.stream_bytes = None
-            mm32 = jax.vmap(spmv_ell, in_axes=(None, 1), out_axes=1)
-            mv64 = spmv_ell
-            mv64_lo = None
+        from lsbench_tpu.matrix.ell import EllMatrix
+        from lsbench_tpu.ops.spmv import spmv_ell
+        self._op = EllMatrix.from_csr(Ap, dtype=jnp.float32)
+        self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
+        self.stream_bytes = None
+        ell_mm = jax.vmap(spmv_ell, in_axes=(None, 1), out_axes=1)
         self.setup_breakdown["layout_s"] = _time.perf_counter() - _t0
 
         from lsbench_tpu.solvers.preconditioners import get_preconditioner
@@ -322,25 +288,12 @@ class BlockCgSolver(Solver):
             bnorm2 = _cdots(Bp, Bp)
             tol2 = (rtol_c ** 2) * bnorm2
 
-            mm = lambda V: mm32(op, V)
+            mm = lambda V: ell_mm(op, V)
             if method_c == "shared":
                 pc_cols = None
             else:
                 pc_cols = jax.vmap(lambda r: papply(pstate, r),
                                    in_axes=1, out_axes=1)
-
-            def mm64(Xc):
-                # df64 residual SpMM: one df64 Pallas SpMV per column.
-                # (The blocks stream k times here, but only once per
-                # refinement PASS — ~3 passes total — vs once per inner
-                # iteration for the f32 SpMM, so the layout cost of a
-                # fused df64 SpMM isn't worth it at small k.)
-                if mv64 is None:  # TPU: shared-hi df64 (op.blocks + lo)
-                    cols = [mv64_lo(op, op64, Xc[:, j])
-                            for j in range(k)]
-                else:
-                    cols = [mv64(op64, Xc[:, j]) for j in range(k)]
-                return jnp.stack(cols, axis=1)
 
             def refine_cond(s):
                 X, R, rr, it_total, passes = s
@@ -364,7 +317,7 @@ class BlockCgSolver(Solver):
                 D32 = jnp.where(jnp.isfinite(D32), D32, 0.0)
                 X = X + (D32 * safe.astype(jnp.float32)[None, :]
                          ).astype(jnp.float64)
-                R_new = Bp - mm64(X)
+                R_new = Bp - ell_mm(op64, X)
                 return (X, R_new, _cdots(R_new, R_new),
                         it_total + inner_iters, passes + 1)
 
@@ -397,7 +350,7 @@ class BlockCgSolver(Solver):
                                   "method": self.method,
                                   "nrhs": int(B.shape[1]),
                                   "relres_cols": relres_cols.tolist(),
-                                  # Structurally f32 SpMM inner + df64
+                                  # Structurally f32 SpMM inner + f64
                                   # residual outer, whatever --precision
                                   # said; surfaced first-class so the
                                   # record's precision column shows it.

@@ -5,14 +5,13 @@ residual-norm stop at 1e-4 of the initial residual (ginkgo.cpp:55-64). The
 workload is SPD (SURVEY.md §2.1), so CG is the natural native solver; a
 BiCGSTAB twin (solvers/bicgstab.py) covers the nonsymmetric role.
 
-TPU design: the entire iteration runs inside one `jax.jit` via
-`lax.while_loop` — no host round-trips per iteration. The two dot products
-per iteration are computed from one stacked reduction (`_fused_dots`) so the
-distributed version needs exactly one `psum` per iteration. The matvec is
-either the jnp padded-row (ELL) SpMV — works at any dtype — or the Pallas
-block-sparse (BSR) kernel (f32, TPU), optionally after an RCM reordering
-that densifies the blocks (the reference applies the same host-side
-symmetric permutation before its device solve, cusparse.c:66-96).
+The entire iteration runs inside one `jax.jit` via `lax.while_loop` — no
+host round-trips per iteration. The two dot products per iteration are
+computed from one stacked reduction (`_fused_dots`) so the distributed
+version needs exactly one `psum` per iteration. The matvec runs in the
+chosen SpMV layout (`build_matvec`), optionally after a host-side
+symmetric reordering (the reference applies the same permutation before
+its device solve, cusparse.c:66-96).
 """
 
 from __future__ import annotations
@@ -68,16 +67,23 @@ def cg_loop(matvec, precond_apply, b, rtol, maxiter, dtype):
     return x, iters, jnp.sqrt(rr), bnorm
 
 
+LAYOUTS = ("ell", "ell_triton")
+
+
 def resolve_layout(layout: str, dtype) -> str:
-    if layout != "auto":
-        return layout
-    if jax.default_backend() == "tpu":
-        # f32 → Pallas BSR kernel; f64 → double-float Pallas kernel
-        # (hi/lo f32 pairs + compensated arithmetic, rel err ~2⁻⁴⁹ —
-        # measured 180 µs vs 6.4 ms gather-ELL / 8.4 ms selector-XLA per
-        # SpMV on xn3b_A_10, v5e).
-        return "bsr" if jnp.dtype(dtype) == jnp.float32 else "bsr_df64"
-    return "ell"
+    """Map a layout name onto a built SpMV layout.
+
+    "auto" is the measured winner where it can run: on the GPU the
+    slot-major ELL kernel through Pallas' Triton route (ops/spmv_triton.py;
+    PERF.md, SpMV candidates), elsewhere XLA's fused ELL gather.
+    """
+    del dtype  # the same winner in f64 and f32
+    if layout == "auto":
+        return "ell_triton" if jax.default_backend() == "gpu" else "ell"
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown SpMV layout '{layout}' "
+                         f"(choose from auto, {', '.join(LAYOUTS)})")
+    return layout
 
 
 def build_matvec(A: CsrMatrix, dtype, layout: str):
@@ -88,43 +94,10 @@ def build_matvec(A: CsrMatrix, dtype, layout: str):
     captured jit constants, which bloat the executable and add
     per-dispatch cost proportional to their size.
     """
-    if layout == "dense":
-        # Small operators (coarse AMG levels): one MXU matvec beats any
-        # sparse path — no pallas fixed cost, no gathers. HIGHEST precision
-        # because TPU matmuls otherwise round operands to bf16.
-        op = jnp.asarray(A.to_dense(), dtype=dtype)
-        hp = jax.lax.Precision.HIGHEST
-        return (lambda op, v: jnp.matmul(op, v.astype(op.dtype), precision=hp)
-                ), op, op.size * op.dtype.itemsize
-    if layout == "bsr":
-        from lsbench_tpu.matrix.bsr import (BsrMatrix,
-                                            classed_layout_wins)
-        from lsbench_tpu.ops.spmv_pallas import spmv_bsr
-        if classed_layout_wins(A):
-            layout = "bsr_classed"
-        else:
-            op = BsrMatrix.from_csr(A, dtype=jnp.float32)
-            return (lambda op, v: spmv_bsr(op, v)), op, op.bytes_streamed
-    if layout == "bsr_classed":
-        # Class-padded BSR: wins at large n when a few wide row groups
-        # would otherwise pad every group to the global max slot count
-        # (~25% less HBM traffic at n=262k Poisson; the 2 extra
-        # pallas_call pipeline fills ~20 us are negligible there but NOT
-        # at reference scale, hence the size gate in classed_layout_wins).
-        from lsbench_tpu.matrix.bsr import BsrClassed
-        from lsbench_tpu.ops.spmv_pallas import spmv_bsr_classed
-        op = BsrClassed.from_csr(A, dtype=jnp.float32)
-        return (lambda op, v: spmv_bsr_classed(op, v)), op, op.bytes_streamed
-    if layout == "bsr_df64":
-        from lsbench_tpu.matrix.bsr import BsrDf64
-        from lsbench_tpu.ops.spmv_pallas import spmv_bsr_df64
-        op = BsrDf64.from_csr(A)
-        return (lambda op, v: spmv_bsr_df64(op, v)), op, op.bytes_streamed
-    if layout == "bsr_xla":
-        from lsbench_tpu.matrix.bsr import BsrMatrix
-        op = BsrMatrix.from_csr(A, dtype=dtype, with_sel=True)
-        stream = op.bytes_streamed + op.sel.size * 4
-        return (lambda op, v: op.matvec_xla(v)), op, stream
+    if layout == "ell_triton":
+        from lsbench_tpu.ops.spmv_triton import EllSlotMajor, spmv_ell_triton
+        op = EllSlotMajor.from_csr(A, dtype=dtype)
+        return (lambda op, v: spmv_ell_triton(op, v)), op, op.bytes_streamed
     ell = EllMatrix.from_csr(A, dtype=dtype)
     stream = ell.vals.size * (ell.vals.dtype.itemsize + 4)
     return (lambda op, v: spmv_ell(op, v)), ell, stream
@@ -132,8 +105,8 @@ def build_matvec(A: CsrMatrix, dtype, layout: str):
 
 @register_solver("cg")
 class CgSolver(Solver):
-    """Jacobi- (or AMG-) preconditioned CG, optional RCM/AMD reordering and
-    Pallas BSR matvec."""
+    """Jacobi- (or AMG-) preconditioned CG with optional RCM/AMD
+    reordering."""
 
     def __init__(self, A: CsrMatrix, dtype=jnp.float64, precond="jacobi",
                  rtol=1e-8, maxiter=None, layout="auto", ordering="none",
@@ -157,12 +130,11 @@ class CgSolver(Solver):
         apply_mv, self._op, self.stream_bytes = build_matvec(
             Ap, self.dtype, self.layout)
         self._mv = lambda v: apply_mv(self._op, v)
-        pdtype = jnp.float32 if self.layout == "bsr" else self.dtype
         self._pstate, papply = get_preconditioner(precond)(
-            Ap, pdtype, **(precond_params or {}))
+            Ap, self.dtype, **(precond_params or {}))
 
         rtol_c, maxiter_c = self.rtol, self.maxiter
-        dt = jnp.float32 if self.layout == "bsr" else self.dtype
+        dt = self.dtype
         perm_dev, inv_dev = self._perm_dev, self._inv_dev
 
         # Operator + preconditioner state enter as jit ARGUMENTS (captured

@@ -425,7 +425,7 @@ def jacobi_improve_interpolation(A: CsrMatrix, P: CsrMatrix,
     # (the trailing identity pair drops at ω=1). The native Gustavson
     # kernel dedups in its dense accumulator, so the per-pass
     # argsort-of-multi-M-COO this replaces — the dominant cost of the
-    # n=262k first-time AMG setup (VERDICT r3 next 5) — disappears;
+    # n=262k first-time AMG setup — disappears;
     # identical math up to float addition order.
     f = f_idx.size
     scale = -omega / d_f

@@ -5,10 +5,11 @@ ginkgo.cpp:55-64) for matrices where BiCGSTAB stagnates. Right-
 preconditioned, so the residual the stopping test sees is the true
 residual.
 
-TPU design: the Arnoldi basis is a dense (m+1, n) matrix; orthogonalization
+Design: the Arnoldi basis is a dense (m+1, n) matrix; orthogonalization
 is CGS2 (classical Gram-Schmidt, two passes) so each inner step is two
-(m+1,n)×(n,) matmuls on the MXU instead of j sequential dots — masked to
-the active columns to keep shapes static. The small (m+1, m) least-squares
+(m+1,n)×(n,) matrix-vector products instead of j sequential dots — masked
+to the active columns to keep shapes static. Every product asks for
+HIGHEST precision, so an f32 basis never runs in TF32. The small (m+1, m) least-squares
 problem is solved once per restart cycle with dense QR on device; the outer
 restart loop is a `lax.while_loop` with exact residual recomputation, so
 the whole solve stays in one jit.
@@ -24,6 +25,13 @@ from lsbench_tpu.matrix.csr import CsrMatrix
 from lsbench_tpu.solvers.base import SolveResult, Solver, register_solver
 from lsbench_tpu.solvers.cg import build_matvec, resolve_layout
 from lsbench_tpu.solvers.preconditioners import get_preconditioner
+
+
+_HP = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HP)
 
 
 def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
@@ -47,10 +55,10 @@ def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
             w = matvec(precond_apply(V[j]))
             # CGS2 against rows 0..j (mask keeps shapes static).
             mask = (jnp.arange(m + 1) <= j).astype(dtype)
-            h1 = (V @ w) * mask
-            w = w - V.T @ h1
-            h2 = (V @ w) * mask
-            w = w - V.T @ h2
+            h1 = _mm(V, w) * mask
+            w = w - _mm(V.T, h1)
+            h2 = _mm(V, w) * mask
+            w = w - _mm(V.T, h2)
             h = h1 + h2
             hnext = jnp.sqrt(jnp.vdot(w, w))
             V = V.at[j + 1].set(w / jnp.maximum(hnext, eps_break))
@@ -62,8 +70,8 @@ def gmres_loop(matvec, precond_apply, b, rtol, max_restarts, m, dtype):
         e1 = jnp.zeros(m + 1, dtype).at[0].set(beta)
         q, rr = jnp.linalg.qr(H, mode="reduced")
         y = jax.scipy.linalg.solve_triangular(
-            rr + eps_break * jnp.eye(m, dtype=dtype), q.T @ e1, lower=False)
-        dx = precond_apply(V[:m].T @ y)
+            rr + eps_break * jnp.eye(m, dtype=dtype), _mm(q.T, e1), lower=False)
+        dx = precond_apply(_mm(V[:m].T, y))
         return x + dx
 
     def cond(s):
@@ -95,24 +103,6 @@ class GmresSolver(Solver):
         maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
         self.max_restarts = max(1, -(-maxiter // self.restart))
 
-        self._delegate = None
-        if (jax.default_backend() == "tpu"
-                and self.dtype == jnp.dtype(jnp.float64)):
-            # Emulated-f64 Arnoldi on TPU is orders of magnitude off f32
-            # speed (every V/H op pays the f64 emulation tax). Delegate to
-            # f32 restarted GMRES + double-float residual refinement
-            # (refine.py) — same move as the cholesky path.
-            import sys
-            print("gmres: fp64 on TPU executes as f32 Arnoldi + double-"
-                  "float iterative refinement (mode fp32_ir_auto).",
-                  file=sys.stderr)
-            from lsbench_tpu.solvers.refine import GmresIrSolver
-            self._delegate = GmresIrSolver(
-                A, rtol=self.rtol, maxiter=maxiter, restart=self.restart,
-                precond=precond, layout=layout, ordering=ordering, **params)
-            self.setup_breakdown = self._delegate.setup_breakdown
-            return
-
         self.layout = resolve_layout(layout, self.dtype)
 
         from lsbench_tpu.ordering import get_ordering
@@ -127,11 +117,10 @@ class GmresSolver(Solver):
         apply_mv, self._op, self.stream_bytes = build_matvec(
             Ap, self.dtype, self.layout)
         self._mv = lambda v: apply_mv(self._op, v)
-        pdtype = jnp.float32 if self.layout == "bsr" else self.dtype
-        self._pstate, papply = get_preconditioner(precond)(Ap, pdtype)
+        self._pstate, papply = get_preconditioner(precond)(Ap, self.dtype)
 
         rtol_c, mr, m = self.rtol, self.max_restarts, self.restart
-        dt = jnp.float32 if self.layout == "bsr" else self.dtype
+        dt = self.dtype
 
         @jax.jit
         def _solve(op, pstate, b):
@@ -146,10 +135,6 @@ class GmresSolver(Solver):
         self._jit_solve = _solve
 
     def solve(self, b) -> SolveResult:
-        if self._delegate is not None:
-            res = self._delegate.solve(b)
-            res.extra["precision_mode"] = "fp32_ir_auto"
-            return res
         x, iters, rnorm, bnorm = self._jit_solve(self._op, self._pstate,
                                                  jnp.asarray(b))
         rnorm, bnorm = float(rnorm), float(bnorm)
@@ -158,17 +143,5 @@ class GmresSolver(Solver):
                            converged=relres <= self.rtol or bnorm == 0.0)
 
     def solve_fn(self):
-        if self._delegate is not None:
-            return self._delegate.solve_fn()
         op, pstate, jit_solve = self._op, self._pstate, self._jit_solve
         return lambda b: jit_solve(op, pstate, b)[0]
-
-    def solve_fn_args(self):
-        if self._delegate is not None:
-            return self._delegate.solve_fn_args()
-        return super().solve_fn_args()
-
-    def matvec_op(self):
-        if self._delegate is not None:
-            return self._delegate.matvec_op()
-        return super().matvec_op()

@@ -34,8 +34,8 @@ def block_jacobi_precond(A: CsrMatrix, dtype, block_size: int = 32):
 
     The Ginkgo backend's Jacobi preconditioner generalizes to blocks
     (Ginkgo's Jacobi is block-capable); blocks are inverted once at setup
-    (batched on device) and applied as one batched (nb,k,k)×(nb,k) matmul —
-    MXU-shaped. Rows are taken in the solver's current ordering, so
+    (batched on device) and applied as one batched (nb,k,k)×(nb,k) matmul
+    at HIGHEST precision (no TF32 for f32 blocks). Rows are taken in the solver's current ordering, so
     combining with RCM makes blocks denser.
     """
     n = A.nrows
@@ -54,7 +54,8 @@ def block_jacobi_precond(A: CsrMatrix, dtype, block_size: int = 32):
     def apply(inv_blocks, r_vec):
         rp = jnp.zeros(n_pad, r_vec.dtype).at[:n].set(r_vec)
         z = jnp.einsum("bij,bj->bi", inv_blocks,
-                       rp.reshape(nb, k).astype(inv_blocks.dtype))
+                       rp.reshape(nb, k).astype(inv_blocks.dtype),
+                       precision=jax.lax.Precision.HIGHEST)
         return z.reshape(-1)[:n].astype(r_vec.dtype)
 
     return inv_blocks, apply
@@ -71,7 +72,7 @@ def _amg_classical_precond(A: CsrMatrix, dtype, **amg_params):
     Defaults are the measured-best internals on the reference workload:
     3 damped (ω=0.5) improvement passes toward the ideal -A_FF⁻¹A_FC,
     truncated to 8/row — per-cycle factors 0.15-0.33 across all seven
-    reference matrices (RESULTS.md §1)."""
+    reference matrices."""
     amg_params.setdefault("coarsening", "classical")
     amg_params.setdefault("theta", 0.5)
     amg_params.setdefault("interp", "jacobi")

@@ -1,20 +1,13 @@
-"""Mixed-precision iterative refinement: fp64 accuracy at fp32 speed.
+"""Mixed-precision iterative refinement: f32 inner solve, f64 residual.
 
-TPU f64 is emulated (slow), so the flagship TPU solve mode is: inner
-Krylov solve in f32 on the Pallas BSR path, outer residual r = b − A·x
-in f64 — via the double-float Pallas kernel on TPU
-(ops/spmv_pallas.py::spmv_bsr_df64, ~2⁻⁴⁹ error at 35x emulated-f64
-speed), or the jnp ELL path elsewhere — once per refinement pass. Each
-pass gains ~6 digits; 2–3 passes reach the reference's direct-solve
-tolerance 1e-10 (cusparse.c:184) with the f64 cost paid per pass, not
-per iteration.
+The inner Krylov solve runs in f32; the outer residual r = b − A·x is
+computed in native f64 once per refinement pass. Each pass gains ~6
+digits; 2–3 passes reach the reference's direct-solve tolerance 1e-10
+(cusparse.c:184) with the f64 cost paid per pass, not per iteration.
 
 The structure is generic over the inner Krylov method: CG for the SPD
 workload (solver "cg_ir", the `--precision fp32_ir` CLI mode), restarted
-GMRES ("gmres_ir") and BiCGSTAB ("bicgstab_ir") for nonsymmetric systems
-— the latter two are what the plain gmres/bicgstab solvers delegate to
-at fp64 on TPU, where an emulated-f64 Arnoldi/recurrence loop would be
-orders of magnitude off f32 speed (VERDICT r1 weak item 8).
+GMRES ("gmres_ir") and BiCGSTAB ("bicgstab_ir") for nonsymmetric systems.
 """
 
 from __future__ import annotations
@@ -67,38 +60,7 @@ class KrylovIrSolver(Solver):
         apply32, self._op, self.stream_bytes = build_matvec(
             Ap, jnp.float32, self.layout)
         self._mv = lambda v: apply32(self._op, v)
-        if jax.default_backend() == "tpu":
-            # Double-float Pallas SpMV for the f64 residual: the gather ELL
-            # SpMV in XLA-emulated f64 costs ~6.4 ms per call on v5e
-            # (~100x this kernel) and dominated the whole IR solve.
-            from lsbench_tpu.matrix.bsr import BsrDf64, BsrMatrix
-            op64 = BsrDf64.from_csr(Ap)
-            if (isinstance(self._op, BsrMatrix)
-                    and self._op.br == op64.br
-                    and self._op.blocks.shape == op64.blocks_hi.shape
-                    and np.array_equal(np.asarray(self._op.block_cols),
-                                       np.asarray(op64.block_cols))):
-                # The df64 HI block array is bit-identical to the f32
-                # operator's blocks (both are the f64 values rounded once
-                # to f32), so with the uniform-BSR inner layout the jitted
-                # program carries op.blocks + the LO array only — one
-                # fewer ~nnz-sized operand to stage per dispatch and less
-                # VMEM pressure competing with the inner loop's resident
-                # blocks (DESIGN.md "VMEM residency"; measured ~2 ms less
-                # fixed cost per cg_ir solve on xn3b_A_10, v5e).
-                from lsbench_tpu.ops.spmv_pallas import spmv_bsr_df64_lo
-                self._op64 = op64.blocks_lo
-                mv64 = None
-                mv64_split = spmv_bsr_df64_lo
-            else:
-                from lsbench_tpu.ops.spmv_pallas import spmv_bsr_df64
-                self._op64 = op64
-                mv64 = spmv_bsr_df64
-                mv64_split = None
-        else:
-            self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
-            mv64 = spmv_ell
-            mv64_split = None
+        self._op64 = EllMatrix.from_csr(Ap, dtype=jnp.float64)
         self.setup_breakdown["layout_s"] = _time.perf_counter() - _t0
         _t0 = _time.perf_counter()
         self._pstate, papply = get_preconditioner(precond)(
@@ -111,10 +73,7 @@ class KrylovIrSolver(Solver):
         @jax.jit
         def _solve(op, op64, pstate, b):
             mv32 = lambda v: apply32(op, v)
-            if mv64_split is not None:
-                resid_mv = lambda x: mv64_split(op, op64, x)
-            else:
-                resid_mv = lambda x: mv64(op64, x)
+            resid_mv = lambda x: spmv_ell(op64, x)
             b = b.astype(jnp.float64)
             bp = b if perm_dev is None else b[perm_dev]
             bnorm = jnp.sqrt(jnp.vdot(bp, bp))
@@ -127,12 +86,10 @@ class KrylovIrSolver(Solver):
 
             def refine_body(s):
                 # Carry the f64 residual across passes: exactly ONE f64
-                # SpMV per pass (it costs ~100x an f32 Pallas SpMV on TPU —
-                # gathers in emulated f64 — so it dominates if recomputed).
+                # SpMV per pass.
                 x, r, rr, it_total, passes = s
-                # Scale for f32 range safety, solve A d ≈ r in f32. The
-                # scaling runs in f32 (emulated-f64 vector ops are slow on
-                # TPU); only the residual and x update stay f64.
+                # Scale for f32 range safety, solve A d ≈ r in f32; only
+                # the residual and x update stay f64.
                 scale = jnp.sqrt(rr)
                 safe = jnp.where(scale > 0, scale, 1.0)
                 rhs32 = r.astype(jnp.float32) * (1.0 / safe).astype(jnp.float32)
@@ -192,12 +149,7 @@ class CgIrSolver(KrylovIrSolver):
 
 @register_solver("gmres_ir")
 class GmresIrSolver(KrylovIrSolver):
-    """f32 restarted-GMRES inner solve + f64 residual refinement.
-
-    The f32 Arnoldi basis/Hessenberg ops run on the MXU at native speed;
-    fp64 accuracy comes from the outer double-float residual, not from
-    an emulated-f64 Arnoldi loop.
-    """
+    """f32 restarted-GMRES inner solve + f64 residual refinement."""
 
     def __init__(self, A: CsrMatrix, restart=30, max_restarts=None,
                  maxiter=None, **params):

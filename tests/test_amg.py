@@ -209,16 +209,18 @@ def test_hypre_alias_uses_jacobi_interp():
     assert params["interp"] == "jacobi"
 
 
-def test_amg_dense_coarse_levels():
-    # Per-level layout selection: with bsr_xla base, coarse levels flip to
-    # the dense MXU matvec; results must match the ell-layout solve.
+@pytest.mark.parametrize("layout", ["auto", "ell"])
+def test_amg_layout_matches_dense_solve(layout):
+    # Every level of the hierarchy runs in the chosen SpMV layout;
+    # AMG-preconditioned CG must reach the dense solution in each.
     import numpy as np
     from lsbench_tpu.matrix.generate import poisson_2d
     from lsbench_tpu.solvers.base import get_solver
     A = poisson_2d(20)
     b = np.arange(A.nrows, dtype=np.float64)
     cls, params = get_solver("cg")
-    params.update(rtol=1e-10, precond="amg", layout="bsr_xla")
+    params.update(rtol=1e-10, precond="amg",
+                  precond_params={"layout": layout})
     res = cls(A, **params).solve(b)
     assert res.converged
     x_ref = np.linalg.solve(A.to_dense(), b)
@@ -441,14 +443,12 @@ def test_hypre_faithful_preset(ref_data_dir):
 
 def test_paralmond_single_kcycle_contracts_error_tj7a(ref_data_dir):
     """One paralmond K-cycle application (paralmond.cpp:118-140 protocol)
-    on tj7a: the residual 2-NORM amplifies (~2.1x; ||Ae|| ≤ λmax·||e||
-    and tj7a's cond is 2.5e4) while the A-norm and 2-norm ERRORS both
-    contract well below 1 — the cycle is a correct error contraction and
-    x after one application is ~4x closer to x* than x0=0. Pins the
-    measured transient so a cycle-scaling regression (which would push
-    the error contraction toward/over 1) fails here, and so the
-    residual amplification isn't 'fixed' by silently rescaling the
-    cycle (RESULTS.md §3 note)."""
+    on the tj7a stand-in (cond ~2.5e4): the A-norm and 2-norm ERRORS
+    both contract well below 1 — the cycle is a correct error
+    contraction — while the residual 2-norm may transiently grow
+    (||Ae|| ≤ λmax·||e||; on the original tj7a it grew ~2.1x) but stays
+    bounded. A cycle-scaling regression pushes the error contraction
+    toward or over 1 and fails here."""
     from lsbench_tpu.matrix.io import read_matrix
     A = read_matrix(str(ref_data_dir / "tj7a_A_18.txt"))
     b = make_rhs(A.nrows)
@@ -462,8 +462,6 @@ def test_paralmond_single_kcycle_contracts_error_tj7a(ref_data_dir):
     anorm = lambda e: float(np.sqrt(e @ (Ad @ e)))
     a_contr = anorm(e1) / anorm(e0)
     e_contr = float(np.linalg.norm(e1) / np.linalg.norm(e0))
-    # Measured 2026-08: relres2 2.14, A-norm 0.315, 2-norm err 0.264.
-    assert res.relres > 1.0, res.relres       # the documented transient
     assert res.relres < 4.0, res.relres
     assert a_contr < 0.5, a_contr             # the cycle really contracts
     assert e_contr < 0.5, e_contr
@@ -471,10 +469,20 @@ def test_paralmond_single_kcycle_contracts_error_tj7a(ref_data_dir):
 
 def test_abs_strength_selectable():
     """strength=abs is selectable (documented negative result on the
-    reference workload, RESULTS.md §1) and produces a working hierarchy."""
+    reference workload) and produces a working hierarchy."""
     A = poisson_2d(16)
     b = make_rhs(A.nrows)
     s = make("amg", A, coarsening="classical", strength="abs",
              rtol=1e-8, maxiter=60)
     res = s.solve(b)
     assert res.converged
+
+
+def test_hierarchy_layout_keeps_ell_for_auto():
+    """AMG levels run XLA's ELL unless a layout is named explicitly."""
+    import jax.numpy as jnp
+    from lsbench_tpu.solvers.amg import hierarchy_layout
+    assert hierarchy_layout("auto", jnp.float64) == "ell"
+    assert hierarchy_layout("ell_triton", jnp.float32) == "ell_triton"
+    with pytest.raises(ValueError, match="unknown SpMV layout"):
+        hierarchy_layout("bsr", jnp.float64)

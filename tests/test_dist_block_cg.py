@@ -1,8 +1,6 @@
-"""Distributed multi-RHS (VERDICT r2 item 7): --nrhs × --devices
-composing. The k RHS columns share one halo exchange and one streamed
-block pass per iteration (parallel/dist_spmv.py::halo_spmm_bsr_local /
-halo_spmm_ell_local), so effective nnz/s ≥ k× the distributed SpMV for
-the same HBM bytes."""
+"""Distributed multi-RHS: --nrhs × --devices composing. The k RHS
+columns share one halo exchange and one matrix pass per iteration
+(parallel/dist_spmv.py::halo_spmm_ell_local)."""
 
 from functools import partial
 
@@ -19,7 +17,6 @@ from lsbench_tpu.matrix.io import read_matrix
 from lsbench_tpu.parallel.dist_block_cg import DistributedBlockCg
 from lsbench_tpu.parallel.mesh import ROWS, make_row_mesh
 
-REF = "/root/reference/tests/xn3b_A_18.txt"
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 2,
                                 reason="needs multi-device mesh")
@@ -31,37 +28,33 @@ def _block_rhs(n, k, seed=0):
                            + [rng.standard_normal(n) for _ in range(k - 1)])
 
 
-def test_dist_spmm_bsr_matches_host():
-    """Raw distributed SpMM (Pallas interpret) vs the host product."""
-    from lsbench_tpu.parallel.dist_spmv import (build_halo_bsr_plan,
-                                                halo_spmm_bsr_local)
+def test_dist_spmm_ell_matches_host():
+    """Raw distributed halo SpMM vs the host product."""
+    from lsbench_tpu.parallel.dist_spmv import (build_halo_plan,
+                                                halo_spmm_ell_local)
     A = poisson_2d(24)
     mesh = make_row_mesh()
     k = 4
-    plan = build_halo_bsr_plan(A, mesh.devices.size, jnp.float32)
+    plan = build_halo_plan(A, mesh.devices.size, jnp.float64)
     assert not plan.needs_all_gather
 
     @partial(shard_map, mesh=mesh,
-             in_specs=(P(ROWS, None), P(ROWS, None, None, None),
-                       P(ROWS, None)),
-             out_specs=P(ROWS, None), check_vma=False)
-    def run(bcols_l, blocks_l, X_l):
-        return halo_spmm_bsr_local(plan.halo, plan.nloc, plan.n_ext,
-                                   bcols_l, blocks_l, X_l)
+             in_specs=(P(ROWS, None), P(ROWS, None), P(ROWS, None)),
+             out_specs=P(ROWS, None))
+    def run(vals_l, cols_l, X_l):
+        return halo_spmm_ell_local(plan.halo, vals_l, cols_l, X_l)
 
     X = np.random.default_rng(0).standard_normal((A.nrows, k))
-    Xp = jnp.zeros((plan.n_pad, k), jnp.float32).at[: plan.n].set(
-        jnp.asarray(X, jnp.float32))
-    Y = np.asarray(run(plan.bcols, plan.blocks_hi,
+    Xp = jnp.zeros((plan.n_pad, k)).at[: plan.n].set(jnp.asarray(X))
+    Y = np.asarray(run(plan.vals, plan.cols,
                        jax.device_put(Xp, NamedSharding(mesh, P(ROWS, None))))
                    )[: plan.n]
     for j in range(k):
-        y_ref = A.matvec(X[:, j])
-        np.testing.assert_allclose(Y[:, j], y_ref, rtol=3e-5, atol=3e-4)
+        np.testing.assert_allclose(Y[:, j], A.matvec(X[:, j]), rtol=1e-12)
 
 
-def test_dist_block_cg_solves_all_columns():
-    A = read_matrix(REF)
+def test_dist_block_cg_solves_all_columns(ref_data_dir):
+    A = read_matrix(str(ref_data_dir / "xn3b_A_18.txt"))
     mesh = make_row_mesh()
     k = 4
     B = _block_rhs(A.nrows, k)
@@ -75,11 +68,11 @@ def test_dist_block_cg_solves_all_columns():
         assert tr <= 1e-7, (j, tr)
 
 
-def test_dist_block_cg_matches_single_chip_block_cg():
+def test_dist_block_cg_matches_single_chip_block_cg(ref_data_dir):
     """Same math as the single-chip simultaneous block CG: equal
     solutions at the solved tolerance."""
     from lsbench_tpu.solvers.block_cg import BlockCgSolver
-    A = read_matrix(REF)
+    A = read_matrix(str(ref_data_dir / "xn3b_A_18.txt"))
     k = 3
     B = _block_rhs(A.nrows, k, seed=2)
     dist = DistributedBlockCg(A, make_row_mesh(), nrhs=k, rtol=1e-8)
@@ -89,43 +82,11 @@ def test_dist_block_cg_matches_single_chip_block_cg():
     assert np.linalg.norm(Xd - Xs) / np.linalg.norm(Xs) < 1e-6
 
 
-def test_dist_block_cg_bsr_equals_ell():
-    A = poisson_2d(24)
-    mesh = make_row_mesh()
-    k = 3
-    B = _block_rhs(A.nrows, k, seed=3)
-    out = {}
-    for spmv in ("ell", "bsr"):
-        s = DistributedBlockCg(A, mesh, nrhs=k, rtol=1e-6, local_spmv=spmv)
-        assert s.local_spmv == spmv
-        out[spmv] = np.asarray(s.solve(B).x, np.float64)
-    assert (np.linalg.norm(out["ell"] - out["bsr"])
-            / np.linalg.norm(out["ell"]) < 1e-4)
-
-
-def test_dist_spmm_bytes_argument():
-    """The k-RHS SpMM streams the SAME per-device block bytes as one
-    SpMV (the plan is shared), so effective nnz/s is ≥ k× the SpMV's for
-    any k until the MXU binds — the bytes-based scaling argument."""
-    from lsbench_tpu.parallel.dist_spmv import build_halo_bsr_plan
-    A = read_matrix(REF)
-    ndev = len(jax.devices())
-    plan = build_halo_bsr_plan(A, ndev, jnp.float32)
-    bytes_spmv = plan.bytes_streamed          # one SpMV, all devices
-    # halo_spmm_bsr_local consumes the identical blocks_hi arrays (the
-    # only HBM-streamed operand; x tables are VMEM-resident), so k RHS
-    # move k× the useful nnz for the same streamed bytes:
-    k = 8
-    eff_nnz_per_byte_spmv = A.nnz / bytes_spmv
-    eff_nnz_per_byte_spmm = (k * A.nnz) / bytes_spmv
-    assert eff_nnz_per_byte_spmm >= 4 * eff_nnz_per_byte_spmv
-
-
-def test_cli_nrhs_devices_compose(capsys):
+def test_cli_nrhs_devices_compose(ref_data_dir, capsys):
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "cg", "--nrhs", "3",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "cg", "--nrhs", "3",
                "--devices", "2", "--trials", "1", "--json",
                "--platform", "cpu"])
     assert rc == 0

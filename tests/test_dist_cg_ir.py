@@ -10,12 +10,11 @@ from lsbench_tpu.matrix.io import read_matrix
 from lsbench_tpu.parallel.dist_cg_ir import DistributedCgIr
 from lsbench_tpu.parallel.mesh import make_row_mesh
 
-REF = "/root/reference/tests/xn3b_A_18.txt"
 
 
 @pytest.fixture(scope="module")
-def A():
-    return read_matrix(REF)
+def A(ref_data_dir):
+    return read_matrix(str(ref_data_dir / "xn3b_A_18.txt"))
 
 
 @pytest.fixture(scope="module")
@@ -70,34 +69,6 @@ def test_dist_cg_ir_ordering_roundtrip(A, mesh):
     nb = np.linalg.norm(np.asarray(x_none))
     assert (np.linalg.norm(np.asarray(res.x) - np.asarray(x_none)) / nb
             < 1e-9)
-
-
-def test_dist_cg_ir_bsr_equals_ell(A):
-    """Pallas BSR (interpret mode on CPU) vs the jnp ELL local SpMV
-    inside the SAME dist CG-IR structure.
-
-    Tolerance note: under the test lane's forced-8-host-device XLA flag,
-    pallas INTERPRET mode compiles the double-float kernel's compensated
-    f32 arithmetic differently and its accuracy drops from ~1e-15 to
-    ~1e-8 relative (verified: the identical TwoProd/TwoSum math in plain
-    jnp stays exact under the same flag, and without the flag the
-    interpret kernel is exact too). Hardware is unaffected — the tpu
-    lane asserts the df64 kernel at 1e-13 (test_spmv_df64_hw) and the
-    distributed CG-IR at 1e-10 (test_dist_cg_ir_1dev_hw) — so this test
-    checks the PLUMBING equality at the simulator-achievable tolerance
-    (one refinement pass deep, rtol 1e-4)."""
-    mesh2 = make_row_mesh(2)
-    b = np.arange(A.nrows, dtype=np.float64)
-    out = {}
-    for spmv in ("ell", "bsr"):
-        s = DistributedCgIr(A, mesh2, rtol=1e-4, ordering="rcm",
-                            local_spmv=spmv)
-        assert s.local_spmv == spmv
-        res = s.solve(b)
-        assert _true_relres(A, res.x, b) <= 1e-4
-        out[spmv] = np.asarray(res.x, np.float64)
-    nb = np.linalg.norm(out["ell"])
-    assert np.linalg.norm(out["ell"] - out["bsr"]) / nb < 1e-3
 
 
 def test_dist_cg_ordering_roundtrip(A, mesh):
@@ -161,13 +132,13 @@ def test_dist_gmres_ir_converges(mesh):
     assert _true_relres(Ap, res.x, b) <= 1e-10
 
 
-def test_cli_ginkgo_fp32_ir_over_mesh(capsys):
+def test_cli_ginkgo_fp32_ir_over_mesh(ref_data_dir, capsys):
     """`--solver ginkgo --precision fp32_ir --devices N` (the r3 cli
     rejection removed): reaches true 1e-10 under the spelled alias."""
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "ginkgo", "--precision",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "ginkgo", "--precision",
                "fp32_ir", "--rtol", "1e-10", "--devices", "2",
                "--trials", "1", "--json", "--platform", "cpu"])
     assert rc == 0
@@ -178,13 +149,13 @@ def test_cli_ginkgo_fp32_ir_over_mesh(capsys):
     assert rec["converged"] is True
 
 
-def test_cli_devices_1_runs_mesh_path(capsys):
+def test_cli_devices_1_runs_mesh_path(ref_data_dir, capsys):
     """--devices 1 (explicitly given) must run the full shard_map mesh
     plumbing, not the single-chip solver (VERDICT r2 item 1)."""
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "cg_ir", "--devices", "1",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "cg_ir", "--devices", "1",
                "--trials", "2", "--json", "--platform", "cpu"])
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -194,18 +165,18 @@ def test_cli_devices_1_runs_mesh_path(capsys):
     assert rec["true_relres"] <= 1e-9
 
 
-def test_cli_devices_passes_ordering(capsys):
+def test_cli_devices_passes_ordering(ref_data_dir, capsys):
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "cg", "--devices", "2",
-               "--ordering", "rcm", "--precision", "fp32",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "cg", "--devices", "2",
+               "--ordering", "rcm", "--precision", "fp64",
                "--rtol", "1e-6", "--trials", "1", "--json",
                "--platform", "cpu"])
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["ordering"] == "rcm"
-    assert rec["true_relres"] <= 1e-4
+    assert rec["true_relres"] <= 1e-5
 
 
 # ------------------------------- 2-D partition IR family (round 5)
@@ -244,13 +215,13 @@ def test_dist_gmres_bicgstab_ir2d(A, mesh):
         assert _true_relres(A, res.x, b) <= 1e-10
 
 
-def test_cli_cg_fp32_ir_over_2d_mesh(capsys):
+def test_cli_cg_fp32_ir_over_2d_mesh(ref_data_dir, capsys):
     """`--solver cg --precision fp32_ir --mesh 2x4` (VERDICT r4
     missing 3: this exact invocation was rejected)."""
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "cg", "--precision",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "cg", "--precision",
                "fp32_ir", "--rtol", "1e-10", "--devices", "8",
                "--mesh", "2x4", "--trials", "1", "--json",
                "--platform", "cpu"])
@@ -261,11 +232,11 @@ def test_cli_cg_fp32_ir_over_2d_mesh(capsys):
     assert rec["converged"] is True
 
 
-def test_cli_gmres_fp32_ir_over_2d_mesh(capsys):
+def test_cli_gmres_fp32_ir_over_2d_mesh(ref_data_dir, capsys):
     import json
 
     from lsbench_tpu.harness.cli import main
-    rc = main(["--matrix", REF, "--solver", "gmres", "--precision",
+    rc = main(["--matrix", str(ref_data_dir / "xn3b_A_18.txt"), "--solver", "gmres", "--precision",
                "fp32_ir", "--rtol", "1e-8", "--devices", "8",
                "--mesh", "2x4", "--trials", "1", "--json",
                "--platform", "cpu"])

@@ -1,4 +1,4 @@
-"""Multi-host seam test (VERDICT r2 item 6): 2 CPU processes, localhost
+"""Multi-host seam test: 2 CPU processes, localhost
 coordinator, 4 virtual devices each — `init_distributed`
 (parallel/mesh.py:21-46, the jax.distributed replacement for the
 reference's vestigial MPI, paralmond.cpp:94-102) actually exercised:
@@ -6,6 +6,7 @@ DistributedCg runs over an 8-device mesh SPANNING both processes, with
 Gloo carrying the cross-process collectives and `fetch_global`
 reassembling the solution on every process."""
 
+import os
 import socket
 import subprocess
 import sys
@@ -13,13 +14,13 @@ import sys
 import numpy as np
 import pytest
 
-REF = "/root/reference/tests/xn3b_A_18.txt"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 WORKER = r"""
 import sys
 import jax
-jax.config.update("jax_platforms", "cpu")
-pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+pid, nproc, port, path = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
 
 from lsbench_tpu.parallel.mesh import init_distributed, make_row_mesh
 got_pid = init_distributed(f"127.0.0.1:{port}", nproc, pid)
@@ -31,7 +32,7 @@ import numpy as np
 from lsbench_tpu.matrix.io import read_matrix
 from lsbench_tpu.parallel.dist_cg import DistributedCg
 
-A = read_matrix(%r)
+A = read_matrix(path)
 b = np.arange(A.nrows, dtype=np.float64)
 mesh = make_row_mesh()  # all GLOBAL devices, both processes
 s = DistributedCg(A, mesh, dtype="float64", rtol=1e-8)
@@ -41,7 +42,7 @@ true_rr = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
 print(f"RESULT pid={pid} ndev={ndev} iters={res.iters} "
       f"relres={res.relres:.6e} true={true_rr:.6e} "
       f"xsum={float(x.sum()):.12e}", flush=True)
-""" % REF
+"""
 
 
 def _free_port() -> int:
@@ -52,22 +53,23 @@ def _free_port() -> int:
     return port
 
 
-def test_two_process_distributed_cg(tmp_path):
-    import os
+def test_two_process_distributed_cg(tmp_path, ref_data_dir):
+    ref = str(ref_data_dir / "xn3b_A_18.txt")
     worker = tmp_path / "worker.py"
     worker.write_text(WORKER)
     port = _free_port()
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env.pop("JAX_PLATFORMS", None)
+    # The workers stay on the CPU and never claim a GPU.
+    env["JAX_PLATFORMS"] = "cpu"
     # Workers run from a tmp script path: sys.path gets the script dir,
     # not the cwd — point it at the repo explicitly.
-    env["PYTHONPATH"] = "/root/repo" + (
+    env["PYTHONPATH"] = REPO + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     procs = [subprocess.Popen(
-        [sys.executable, str(worker), str(i), "2", str(port)],
+        [sys.executable, str(worker), str(i), "2", str(port), ref],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, cwd="/root/repo") for i in range(2)]
+        text=True, cwd=REPO) for i in range(2)]
     outs = []
     try:
         for p in procs:
@@ -100,10 +102,10 @@ def test_two_process_distributed_cg(tmp_path):
     from lsbench_tpu.matrix.io import read_matrix
     from lsbench_tpu.parallel.dist_cg import DistributedCg
     from lsbench_tpu.parallel.mesh import make_row_mesh
-    A = read_matrix(REF)
+    A = read_matrix(ref)
     b = np.arange(A.nrows, dtype=np.float64)
-    ref = DistributedCg(A, make_row_mesh(8), dtype="float64",
-                        rtol=1e-8).solve(b)
-    assert int(results[0]["iters"]) == ref.iters
-    ref_sum = float(np.asarray(ref.x, np.float64).sum())
+    single = DistributedCg(A, make_row_mesh(8), dtype="float64",
+                           rtol=1e-8).solve(b)
+    assert int(results[0]["iters"]) == single.iters
+    ref_sum = float(np.asarray(single.x, np.float64).sum())
     assert abs(float(results[0]["xsum"]) - ref_sum) <= 1e-6 * abs(ref_sum)

@@ -28,7 +28,8 @@ def test_native_matches_numpy(tiny_matrix_file):
 def test_native_reads_reference_matrix(ref_data_dir):
     reader = _native()
     rn, cn, vn, bn = reader.read_coo(str(ref_data_dir / "xn3b_A_18.txt"))
-    assert len(vn) == 76591 and bn == 1
+    from conftest import reference_standin
+    assert len(vn) == reference_standin("xn3b_A_18.txt").nnz and bn == 1
     rp, cp, vp, bp = _read_coo_numpy(str(ref_data_dir / "xn3b_A_18.txt"))
     np.testing.assert_array_equal(rn, rp)
     np.testing.assert_allclose(vn, vp, rtol=0, atol=0)

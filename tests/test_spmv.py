@@ -1,10 +1,13 @@
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from lsbench_tpu.matrix.csr import CsrMatrix
 from lsbench_tpu.matrix.ell import EllMatrix
 from lsbench_tpu.matrix.generate import poisson_2d, random_spd
 from lsbench_tpu.ops.spmv import spmv_ell
+from lsbench_tpu.solvers.cg import LAYOUTS, build_matvec, resolve_layout
 
 
 @pytest.mark.parametrize("make", [
@@ -38,29 +41,98 @@ def test_ell_padding_alignment():
                                A.matvec(x), rtol=1e-12)
 
 
-def test_df64_smem_chunking_matches_unchunked(monkeypatch):
-    """Layouts whose scalar-prefetched block-column ids exceed the SMEM
-    budget split into multiple pallas_calls over group ranges (hit at
-    n=262k with AMD-permuted operators: G*S ~ 3.4 MB of int32 vs 1 MiB
-    SMEM — the AOT compiler rejects the single-call program). Forcing a
-    tiny budget must produce >1 chunk and the same result."""
-    import lsbench_tpu.ops.spmv_pallas as sp
-    from lsbench_tpu.matrix.bsr import BsrDf64, BsrMatrix
-    from lsbench_tpu.matrix.generate import random_spd
+def _empty_rows():
+    """SPD-pattern matrix whose rows 3, 17, 40 hold no entries."""
+    A = random_spd(64, nnz_per_row=7, seed=5)
+    r, c, v = A.to_coo()
+    keep = ~np.isin(r, [3, 17, 40])
+    return CsrMatrix.from_coo(r[keep], c[keep], v[keep], nrows=64, ncols=64)
 
-    A = random_spd(400, nnz_per_row=9, seed=3)
-    df = BsrDf64.from_csr(A)
-    bsr = BsrMatrix.from_csr(A)
-    x = np.random.default_rng(0).random(A.nrows)
+
+def _skewed_rows():
+    """Arrow matrix: row 0 couples to every column, the rest to <= 3."""
+    n = 300
+    r = np.concatenate([np.zeros(n, int), np.arange(1, n), np.arange(1, n),
+                        np.arange(2, n)])
+    c = np.concatenate([np.arange(n), np.arange(1, n), np.zeros(n - 1, int),
+                        np.arange(1, n - 1)])
+    v = np.random.default_rng(6).standard_normal(r.size)
+    return CsrMatrix.from_coo(r, c, v, nrows=n, ncols=n)
+
+
+def _rectangular():
+    """Tall prolongation-like operator: 200 rows, 37 columns, 1-4 per row."""
+    rng = np.random.default_rng(8)
+    r = np.repeat(np.arange(200), rng.integers(1, 5, 200))
+    c = rng.integers(0, 37, r.size)
+    return CsrMatrix.from_coo(r, c, rng.standard_normal(r.size),
+                              nrows=200, ncols=37)
+
+
+def _apply(A, layout, dtype, x):
+    if layout == "ell_triton":
+        from lsbench_tpu.ops.spmv_triton import (EllSlotMajor,
+                                                 spmv_ell_triton)
+        op = EllSlotMajor.from_csr(A, dtype=dtype)
+        return spmv_ell_triton(op, jnp.asarray(x, dtype), interpret=True)
+    apply, op, nbytes = build_matvec(A, dtype, layout)
+    assert nbytes > 0
+    return jax.jit(apply)(op, jnp.asarray(x, dtype))
+
+
+@pytest.mark.parametrize("make", [_empty_rows, _skewed_rows, _rectangular],
+                         ids=["empty_rows", "skewed_rows", "rectangular"])
+@pytest.mark.parametrize("dtype,rtol", [(jnp.float64, 1e-12),
+                                        (jnp.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_spmv_layouts_match_host(layout, dtype, rtol, make):
+    """Every SpMV layout (the Triton kernel in interpret mode) against
+    the host fp64 product, on empty rows, strongly skewed rows, and a
+    rectangular (AMG transfer-like) operator."""
+    A = make()
+    x = np.random.default_rng(7).standard_normal(A.ncols)
+    y = np.asarray(_apply(A, layout, dtype, x), dtype=np.float64)
+    assert y.shape == (A.nrows,)
     y_ref = A.matvec(x)
-    y1 = np.asarray(sp.spmv_bsr_df64(df, jnp.asarray(x)))
+    assert np.linalg.norm(y - y_ref) <= rtol * np.linalg.norm(y_ref)
 
-    monkeypatch.setattr(sp, "_SMEM_IDX_BUDGET_BYTES", 64)
-    assert len(sp._group_chunks(df.blocks_hi.shape[0],
-                                df.block_cols.shape[1])) > 1
-    y2 = np.asarray(sp.spmv_bsr_df64(df, jnp.asarray(x)))
-    np.testing.assert_allclose(y2, y1, rtol=0, atol=0)  # same math, exact
-    assert np.linalg.norm(y2 - y_ref) / np.linalg.norm(y_ref) < 1e-12
 
-    y3 = np.asarray(sp.spmv_bsr(bsr, jnp.asarray(x, jnp.float32)))
-    assert (np.linalg.norm(y3 - y_ref) / np.linalg.norm(y_ref)) < 1e-5
+def test_resolve_layout_auto_and_rejects_removed():
+    # Off the GPU "auto" is XLA's ELL: the Triton kernel lowers only there.
+    assert jax.default_backend() != "gpu"
+    assert resolve_layout("auto", jnp.float64) == "ell"
+    assert resolve_layout("ell_triton", jnp.float32) == "ell_triton"
+    for gone in ("bsr", "bsr_df64", "bsr_classed", "bsr_xla", "csr", "dense",
+                 "nope"):
+        with pytest.raises(ValueError, match="unknown SpMV layout"):
+            resolve_layout(gone, jnp.float64)
+
+
+def test_dist_local_spmv_rejects_removed():
+    from lsbench_tpu.parallel.dist_spmv import build_dist_matvec
+    from lsbench_tpu.parallel.mesh import make_row_mesh
+    with pytest.raises(ValueError, match="unknown local_spmv 'bsr'"):
+        build_dist_matvec(poisson_2d(8), make_row_mesh(2), jnp.float64,
+                          local_spmv="bsr")
+
+
+def test_cli_rejects_removed_layout(tmp_path, capsys):
+    from lsbench_tpu.harness.cli import main
+    from lsbench_tpu.matrix.io import write_matrix
+    f = tmp_path / "p.txt"
+    write_matrix(poisson_2d(6), f)
+    rc = main(["--matrix", str(f), "--solver", "cg", "--opt", "layout=bsr",
+               "--trials", "1", "--platform", "cpu"])
+    assert rc == 1
+    assert "unknown SpMV layout 'bsr'" in capsys.readouterr().err
+
+
+def test_triton_route_is_named():
+    """The Pallas call names its GPU route: lowering it for the CPU
+    without interpret mode is refused instead of silently interpreted."""
+    from lsbench_tpu.ops.spmv_triton import EllSlotMajor, spmv_ell_triton
+    A = poisson_2d(8)
+    op = EllSlotMajor.from_csr(A)
+    with pytest.raises(Exception, match="interpret"):
+        jax.jit(spmv_ell_triton)(op, jnp.ones(A.ncols)).block_until_ready()

@@ -136,3 +136,26 @@ def test_triton_route_is_named():
     op = EllSlotMajor.from_csr(A)
     with pytest.raises(Exception, match="interpret"):
         jax.jit(spmv_ell_triton)(op, jnp.ones(A.ncols)).block_until_ready()
+
+
+@pytest.mark.parametrize("name,params", [
+    ("cg", {"rtol": 1e-10}),
+    ("gmres", {"rtol": 1e-10, "restart": 10}),
+    ("bicgstab", {"rtol": 1e-8}),
+    ("cg_ir", {"rtol": 1e-10}),
+])
+def test_solvers_run_the_triton_layout(monkeypatch, name, params):
+    """Each Krylov loop with the Triton SpMV inside its jitted while and
+    fori loops (interpret mode here) reaches its tolerance."""
+    import functools
+
+    import lsbench_tpu.ops.spmv_triton as st
+    from lsbench_tpu.solvers.base import get_solver
+    monkeypatch.setattr(st, "spmv_ell_triton",
+                        functools.partial(st.spmv_ell_triton, interpret=True))
+    A = poisson_2d(6)
+    b = np.arange(A.nrows, dtype=np.float64)
+    cls, base = get_solver(name)
+    res = cls(A, **{**base, **params, "layout": "ell_triton"}).solve(b)
+    rel = np.linalg.norm(b - A.matvec(np.asarray(res.x))) / np.linalg.norm(b)
+    assert rel <= 2 * params["rtol"], (res.iters, rel)

@@ -16,7 +16,8 @@ One card:
              checked against each solver's tolerance
   dense      cusolver / cholmod dense direct solves at sem_2d(40, 2)
 
-Every phase prints one JSON line naming the card; any failure raises and
+Every phase prints one JSON line naming the card (the 4-card path one
+per case, as soon as the case is done); any failure raises and
 the script exits non-zero. The last line is the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 """
@@ -178,7 +179,7 @@ def phase_spmv(A) -> dict:
     for dtype in ("float64", "float32"):
         mine = [r for r in rows if r["dtype"] == dtype]
         fastest = min(mine, key=lambda r: r["us"])
-        auto = resolve_layout("auto", jnp.dtype(dtype))
+        auto = resolve_layout("auto", jnp.dtype(dtype), Ap)
         t_auto = next(r["us"] for r in mine if r["layout"] == auto)
         # 10% covers run-to-run spread between near-equal candidates.
         picks[dtype] = {"auto": auto, "fastest": fastest["layout"],
@@ -202,8 +203,9 @@ def phase_solves(path: str, cases, extra: list[str] = ()) -> list[dict]:
     return rows
 
 
-def phase_multi(path: str, workdir: str) -> list[dict]:
-    rows = []
+def phase_multi(path: str, workdir: str, report) -> None:
+    """Each MULTI case on four cards and on one; `report` gets each
+    case's row as soon as the case is done."""
     for name, argv, bound in MULTI:
         mesh = ["--mesh", "2x2"] if name == "cg_mesh_2x2" else []
         xs, recs = [], []
@@ -216,15 +218,14 @@ def phase_multi(path: str, workdir: str) -> list[dict]:
             xs.append(np.load(xfile))
             recs.append(rec)
         diff = float(np.linalg.norm(xs[0] - xs[1]) / np.linalg.norm(xs[1]))
+        report({"case": name, "argv": argv + mesh, "rel_diff": diff,
+                "shard_devices": recs[0].get("shard_devices"),
+                "iters": [r["iters"] for r in recs],
+                "true_relres": [r["true_relres"] for r in recs],
+                "solve_s": [r["solve_s"] for r in recs]})
         if not diff <= 1e-8:
             raise AssertionError(f"{name}: 4-card and 1-card solutions "
                                  f"differ by {diff}")
-        rows.append({"case": name, "rel_diff": diff,
-                     "shard_devices": recs[0].get("shard_devices"),
-                     "iters": [r["iters"] for r in recs],
-                     "true_relres": [r["true_relres"] for r in recs],
-                     "solve_s": [r["solve_s"] for r in recs]})
-    return rows
 
 
 def main(argv=None) -> int:
@@ -252,7 +253,8 @@ def main(argv=None) -> int:
         path = os.path.join(work, f"sem2d_{NE}_{ORDER}.txt")
         write_matrix(A, path)
         if args.devices == 4:
-            emit(card, kind, "multi", solves=phase_multi(path, work))
+            phase_multi(path, work,
+                        lambda row: emit(card, kind, "multi", **row))
         else:
             spmv = phase_spmv(A)
             emit(card, kind, "spmv", **spmv)

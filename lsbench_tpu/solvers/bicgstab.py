@@ -100,7 +100,7 @@ class BicgstabSolver(Solver):
         self.rtol = float(rtol)
         self.maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
 
-        self.layout = resolve_layout(layout, self.dtype)
+        self.layout = resolve_layout(layout, self.dtype, A)
 
         from lsbench_tpu.ordering import get_ordering
         perm = get_ordering(ordering, A)

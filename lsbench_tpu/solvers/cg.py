@@ -69,17 +69,30 @@ def cg_loop(matvec, precond_apply, b, rtol, maxiter, dtype):
 
 LAYOUTS = ("ell", "ell_triton")
 
+# Widest row (ELL width k) that "auto" gives the Triton kernel. Its
+# programs run their k slots one after another, so a wide operator with
+# few rows leaves the card waiting on loads, where XLA's fusion spreads
+# the slots over the card: on the H100, AMG hierarchies whose coarse
+# operators have k = 33-887 solved 1.3x (amgx) and 16x (paralmond) slower
+# with every level on Triton, while k = 25 won at every n from 1,089 to
+# 263,169 (PERF.md, AMG levels on the Triton kernel).
+TRITON_MAX_K = 32
 
-def resolve_layout(layout: str, dtype) -> str:
-    """Map a layout name onto a built SpMV layout.
+
+def resolve_layout(layout: str, dtype, A: CsrMatrix) -> str:
+    """Map a layout name onto the SpMV layout built for the matrix `A`.
 
     "auto" is the measured winner where it can run: on the GPU the
     slot-major ELL kernel through Pallas' Triton route (ops/spmv_triton.py;
-    PERF.md, SpMV candidates), elsewhere XLA's fused ELL gather.
+    PERF.md, SpMV candidates) for rows of at most TRITON_MAX_K entries,
+    else and elsewhere XLA's fused ELL gather.
     """
     del dtype  # the same winner in f64 and f32
     if layout == "auto":
-        return "ell_triton" if jax.default_backend() == "gpu" else "ell"
+        if jax.default_backend() != "gpu":
+            return "ell"
+        widest = int(np.diff(A.offs).max(initial=0))
+        return "ell_triton" if widest <= TRITON_MAX_K else "ell"
     if layout not in LAYOUTS:
         raise ValueError(f"unknown SpMV layout '{layout}' "
                          f"(choose from auto, {', '.join(LAYOUTS)})")
@@ -115,7 +128,7 @@ class CgSolver(Solver):
         self.dtype = jnp.dtype(dtype)
         self.rtol = float(rtol)
         self.maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
-        self.layout = resolve_layout(layout, self.dtype)
+        self.layout = resolve_layout(layout, self.dtype, A)
         self.ordering = ordering
 
         from lsbench_tpu.ordering import get_ordering

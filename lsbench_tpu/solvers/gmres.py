@@ -103,7 +103,7 @@ class GmresSolver(Solver):
         maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
         self.max_restarts = max(1, -(-maxiter // self.restart))
 
-        self.layout = resolve_layout(layout, self.dtype)
+        self.layout = resolve_layout(layout, self.dtype, A)
 
         from lsbench_tpu.ordering import get_ordering
         perm = get_ordering(ordering, A)

@@ -97,7 +97,7 @@ def chebyshev_precond(A: CsrMatrix, dtype, degree: int = 4,
     Why it earns a slot: the apply is `degree` SpMVs plus vector ops —
     no dot products, no triangular solves — so it is reduction-free
     (one psum per CG iteration still suffices when distributed) and runs
-    entirely on the Pallas SpMV kernel. A fixed polynomial is a fixed SPD
+    entirely on the "auto" SpMV layout. A fixed polynomial is a fixed SPD
     operator, so CG theory holds exactly."""
     from lsbench_tpu.solvers.amg import estimate_rho_dinv_a
     from lsbench_tpu.solvers.cg import build_matvec, resolve_layout
@@ -111,7 +111,7 @@ def chebyshev_precond(A: CsrMatrix, dtype, degree: int = 4,
     delta = (lmax - lmin) / 2.0
     sigma = theta / delta
 
-    apply_mv, op, _ = build_matvec(A, dtype, resolve_layout("auto", dtype))
+    apply_mv, op, _ = build_matvec(A, dtype, resolve_layout("auto", dtype, A))
     state = (op, jnp.asarray(dinv_np, dtype=dtype))
     deg = int(degree)
 

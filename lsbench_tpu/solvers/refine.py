@@ -41,7 +41,7 @@ class KrylovIrSolver(Solver):
         self.inner_rtol = float(inner_rtol)
         self.maxiter = int(maxiter) if maxiter is not None else max(10 * A.nrows, 1000)
         self.max_refine = int(max_refine)
-        self.layout = resolve_layout(layout, jnp.float32)
+        self.layout = resolve_layout(layout, jnp.float32, A)
 
         import time as _time
 

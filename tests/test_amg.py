@@ -478,11 +478,65 @@ def test_abs_strength_selectable():
     assert res.converged
 
 
-def test_hierarchy_layout_keeps_ell_for_auto():
-    """AMG levels run XLA's ELL unless a layout is named explicitly."""
-    import jax.numpy as jnp
-    from lsbench_tpu.solvers.amg import hierarchy_layout
-    assert hierarchy_layout("auto", jnp.float64) == "ell"
-    assert hierarchy_layout("ell_triton", jnp.float32) == "ell_triton"
+def test_amg_levels_follow_resolve_layout():
+    """Every level operator (A, P, R) of the hierarchy is built in the
+    layout `resolve_layout` names: on the CPU "auto" is XLA's ELL; a named
+    layout reaches every level; a removed layout is refused."""
+    from lsbench_tpu.matrix.ell import EllMatrix
+    from lsbench_tpu.ops.spmv_triton import EllSlotMajor
+    A = poisson_2d(16)
+    for layout, kind in (("auto", EllMatrix), ("ell_triton", EllSlotMajor)):
+        levels = make("amgx", A, layout=layout, coarse_n=16)._params[0]
+        assert len(levels) >= 2
+        for L in levels:
+            assert all(isinstance(L[m], kind) for m in ("a", "p", "r"))
     with pytest.raises(ValueError, match="unknown SpMV layout"):
-        hierarchy_layout("bsr", jnp.float64)
+        make("amgx", A, layout="bsr")
+
+
+def test_amg_auto_on_gpu_splits_levels_by_width(monkeypatch):
+    """With the GPU's "auto", each level operator takes the Triton kernel
+    only if its widest row fits TRITON_MAX_K (the kernel in interpret mode
+    here), and the cycle still gives the XLA-ELL hierarchy's answer."""
+    import functools
+
+    import lsbench_tpu.ops.spmv_triton as st
+    import lsbench_tpu.solvers.cg as cg
+    from lsbench_tpu.matrix.ell import EllMatrix
+    monkeypatch.setattr(st, "spmv_ell_triton",
+                        functools.partial(st.spmv_ell_triton, interpret=True))
+    A = poisson_2d(16)
+    b = make_rhs(A.nrows)
+    x_ell = np.asarray(make("amgx", A, layout="ell", coarse_n=16).solve(b).x)
+    monkeypatch.setattr(cg.jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(cg, "TRITON_MAX_K", 8)
+    s = make("amgx", A, coarse_n=16)
+    kinds = set()
+    for L in s._params[0]:
+        for m in ("a", "p", "r"):
+            op = L[m]
+            if isinstance(op, st.EllSlotMajor):
+                assert op.vals_t.shape[0] <= 8
+            else:
+                assert isinstance(op, EllMatrix) and op.k > 8
+            kinds.add(type(op))
+    assert kinds == {st.EllSlotMajor, EllMatrix}
+    np.testing.assert_allclose(np.asarray(s.solve(b).x), x_ell,
+                               rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("name", ["amgx", "paralmond"])
+def test_amg_triton_levels_match_ell(monkeypatch, name):
+    """A V-cycle (amgx) and a K-cycle (paralmond) with every level on the
+    Triton SpMV (interpret mode here) give the ELL hierarchy's answer."""
+    import functools
+
+    import lsbench_tpu.ops.spmv_triton as st
+    monkeypatch.setattr(st, "spmv_ell_triton",
+                        functools.partial(st.spmv_ell_triton, interpret=True))
+    A = poisson_2d(12)
+    b = make_rhs(A.nrows)
+    x_ell = np.asarray(make(name, A, layout="ell", coarse_n=16).solve(b).x)
+    x_tri = np.asarray(make(name, A, layout="ell_triton",
+                            coarse_n=16).solve(b).x)
+    np.testing.assert_allclose(x_tri, x_ell, rtol=1e-10, atol=1e-12)

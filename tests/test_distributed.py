@@ -51,8 +51,10 @@ def test_dryrun_entrypoint(mesh8):
 
 
 def test_graft_entry_single_chip():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import __graft_entry__ as ge
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)

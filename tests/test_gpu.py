@@ -46,9 +46,39 @@ def test_spmv_layout_on_gpu(gpu, A, layout, dtype, tol):
     assert np.linalg.norm(y - y_ref) <= tol * np.linalg.norm(y_ref)
 
 
-def test_auto_layout_is_the_triton_kernel(gpu):
+def test_triton_wide_rows_on_gpu(gpu):
+    """The Triton kernel as compiled for the card on an arrow matrix whose
+    first row holds 2,000 entries (ELL width 2,000): the slot loop keeps
+    the program small, and the product matches scipy."""
+    from lsbench_tpu.matrix.csr import CsrMatrix
+    n = 2000
+    r = np.concatenate([np.zeros(n, int), np.arange(1, n), np.arange(1, n)])
+    c = np.concatenate([np.arange(n), np.arange(1, n), np.zeros(n - 1, int)])
+    v = np.random.default_rng(1).standard_normal(r.size)
+    W = CsrMatrix.from_coo(r, c, v, nrows=n, ncols=n)
+    x = np.random.default_rng(2).standard_normal(n)
+    apply, op, _ = build_matvec(W, jnp.float64, "ell_triton")
+    y = np.asarray(jax.jit(apply)(op, jnp.asarray(x)))
+    y_ref = sp.csr_matrix((W.vals, W.cols, W.offs), shape=W.shape) @ x
+    assert np.linalg.norm(y - y_ref) <= 1e-12 * np.linalg.norm(y_ref)
+
+
+@pytest.mark.parametrize("name", ["amgx", "paralmond"])
+def test_amg_triton_levels_on_gpu(gpu, A, name):
+    """AMG under the card's "auto" (the Triton SpMV on level operators of
+    at most TRITON_MAX_K entries a row, XLA's ELL on wider ones) gives the
+    all-XLA-ELL hierarchy's answer."""
+    b = np.arange(A.nrows, dtype=np.float64)
+    cls, base = get_solver(name)
+    x_auto = np.asarray(cls(A, **base).solve(b).x, np.float64)
+    x_ell = np.asarray(cls(A, **{**base, "layout": "ell"}).solve(b).x,
+                       np.float64)
+    assert np.linalg.norm(x_auto - x_ell) <= 1e-10 * np.linalg.norm(x_ell)
+
+
+def test_auto_layout_is_the_triton_kernel(gpu, A):
     for dtype in (jnp.float64, jnp.float32):
-        assert resolve_layout("auto", dtype) == "ell_triton"
+        assert resolve_layout("auto", dtype, A) == "ell_triton"
 
 
 @pytest.mark.parametrize("name,params", [

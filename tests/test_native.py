@@ -177,3 +177,39 @@ def test_native_amd_quality_and_validity():
     f_amd = fill(p1)
     f_md = fill(min_degree(offs, cols, A.nrows))
     assert f_amd <= 1.1 * f_md, (f_amd, f_md)
+
+
+@pytest.mark.parametrize("make", ["poisson_2d", "random_spd", "sem_2d_rcm"])
+def test_native_symbolic_matches_python(monkeypatch, make):
+    """Native etree and row patterns (native/spchol.cpp) equal the Python
+    implementations they replace when the toolchain is present."""
+    import numpy as np
+    from lsbench_tpu.matrix.generate import poisson_2d, random_spd, sem_2d
+    from lsbench_tpu.native import NativeUnavailable
+    from lsbench_tpu.ordering.rcm import rcm_ordering
+    from lsbench_tpu.solvers import sparse_cholesky as sc
+
+    if make == "poisson_2d":
+        A = poisson_2d(11)
+    elif make == "random_spd":
+        A = random_spd(150, seed=4)
+    else:
+        A = sem_2d(6, 2, seed=0)
+        A = A.permuted(rcm_ordering(A))
+    A = sc.symmetrize(A)
+    import lsbench_tpu.native.spchol as S
+    try:
+        parent_n = S.etree(A.nrows, A.offs, A.cols)
+        lo_n, lc_n = S.symbolic_rows(A.nrows, A.offs, A.cols, parent_n)
+    except NativeUnavailable:
+        pytest.skip("no native toolchain")
+
+    def unavailable(*args):
+        raise NativeUnavailable("forced Python fallback")
+    monkeypatch.setattr(S, "etree", unavailable)
+    monkeypatch.setattr(S, "symbolic_rows", unavailable)
+    parent_p = sc.elimination_tree(A)
+    lo_p, lc_p = sc.symbolic_rows(A, parent_p)
+    np.testing.assert_array_equal(parent_n, parent_p)
+    np.testing.assert_array_equal(lo_n, lo_p)
+    np.testing.assert_array_equal(lc_n, lc_p)

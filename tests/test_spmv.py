@@ -101,12 +101,35 @@ def test_spmv_layouts_match_host(layout, dtype, rtol, make):
 def test_resolve_layout_auto_and_rejects_removed():
     # Off the GPU "auto" is XLA's ELL: the Triton kernel lowers only there.
     assert jax.default_backend() != "gpu"
-    assert resolve_layout("auto", jnp.float64) == "ell"
-    assert resolve_layout("ell_triton", jnp.float32) == "ell_triton"
+    A = poisson_2d(6)
+    assert resolve_layout("auto", jnp.float64, A) == "ell"
+    assert resolve_layout("ell_triton", jnp.float32, A) == "ell_triton"
     for gone in ("bsr", "bsr_df64", "bsr_classed", "bsr_xla", "csr", "dense",
                  "nope"):
         with pytest.raises(ValueError, match="unknown SpMV layout"):
-            resolve_layout(gone, jnp.float64)
+            resolve_layout(gone, jnp.float64, A)
+
+
+def _rows_of(k):
+    """64 rows: row 0 holds k entries, the others one."""
+    r = np.concatenate([np.zeros(k, int), np.arange(1, 64)])
+    c = np.concatenate([np.arange(k), np.arange(1, 64)])
+    return CsrMatrix.from_coo(r, c, np.ones(r.size), nrows=64, ncols=64)
+
+
+@pytest.mark.parametrize("widest,layout", [(1, "ell_triton"),
+                                           (32, "ell_triton"),
+                                           (33, "ell"), (64, "ell")])
+def test_auto_on_gpu_picks_by_widest_row(monkeypatch, widest, layout):
+    """On the GPU "auto" gives the Triton kernel rows of at most
+    TRITON_MAX_K entries and XLA's ELL wider ones; explicit names stand."""
+    import lsbench_tpu.solvers.cg as cg
+    assert cg.TRITON_MAX_K == 32
+    monkeypatch.setattr(cg.jax, "default_backend", lambda: "gpu")
+    A = _rows_of(widest)
+    assert resolve_layout("auto", jnp.float64, A) == layout
+    assert resolve_layout("ell", jnp.float64, A) == "ell"
+    assert resolve_layout("ell_triton", jnp.float64, A) == "ell_triton"
 
 
 def test_dist_local_spmv_rejects_removed():
@@ -159,3 +182,37 @@ def test_solvers_run_the_triton_layout(monkeypatch, name, params):
     res = cls(A, **{**base, **params, "layout": "ell_triton"}).solve(b)
     rel = np.linalg.norm(b - A.matvec(np.asarray(res.x))) / np.linalg.norm(b)
     assert rel <= 2 * params["rtol"], (res.iters, rel)
+
+
+@pytest.mark.parametrize("unroll", [1, 3, None],
+                         ids=["unroll1", "unroll3", "no_loop"])
+@pytest.mark.parametrize("make", [_empty_rows, _skewed_rows],
+                         ids=["empty_rows", "skewed_rows"])
+def test_triton_slot_loop_matches_host(make, unroll):
+    """The Triton kernel's slot loop (interpret mode), with and without a
+    remainder of slots after the last full step, against the host."""
+    from lsbench_tpu.ops.spmv_triton import EllSlotMajor, spmv_ell_triton
+    A = make()
+    x = np.random.default_rng(9).standard_normal(A.ncols)
+    op = EllSlotMajor.from_csr(A, tile=128)
+    y = np.asarray(spmv_ell_triton(op, jnp.asarray(x), interpret=True,
+                                   unroll=unroll))
+    np.testing.assert_allclose(y, A.matvec(x), rtol=1e-12, atol=1e-12)
+
+
+def test_triton_program_size_is_bounded_in_k():
+    """The kernel lowered for the GPU keeps its size as the ELL width
+    grows from 5 to 300 (the slot loop); unrolling every slot makes it
+    grow with k, which is what made wide AMG levels slow to compile."""
+    from lsbench_tpu.ops.spmv_triton import EllSlotMajor, spmv_ell_triton
+
+    def lowered_size(A, unroll):
+        op = EllSlotMajor.from_csr(A)
+        f = jax.jit(lambda op, x: spmv_ell_triton(op, x, unroll=unroll))
+        low = f.trace(op, jnp.ones(A.ncols)).lower(
+            lowering_platforms=("cuda",))
+        return len(low.as_text())
+
+    narrow, wide = poisson_2d(8), _skewed_rows()      # k = 5, k = 300
+    assert lowered_size(wide, 4) < 1.5 * lowered_size(narrow, 4)
+    assert lowered_size(wide, None) > 10 * lowered_size(narrow, None)
